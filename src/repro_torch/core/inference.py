@@ -22,8 +22,9 @@ engine bit for bit (docs/PARITY.md).  A flow that never takes an exit
 action reports ``-1`` sentinels (labels and exit partition), counted by
 ``EngineResult.n_unterminated``.
 
-Not in this slice: the looped backend, early-exit compaction, streaming
-and the ``auto``/``tuned`` routing (ROADMAP items A.5, A.7, A.9).
+Not ported yet: the looped backend, early-exit compaction, streaming
+and the ``auto``/``tuned`` routing (ROADMAP items A.5, A.7, A.9).  Live
+per-packet serving is ``repro_torch.serve.flowtable``.
 """
 from __future__ import annotations
 
@@ -72,6 +73,9 @@ class EngineOptions:
     block_b: int | None = None
 
     def __post_init__(self):
+        if self.impl in ("auto", "tuned"):
+            raise ValueError(f"impl={self.impl!r} needs repro.tuning, which "
+                             "is not ported yet (ROADMAP A.9)")
         if self.impl not in _IMPLS:
             raise ValueError(f"unknown impl {self.impl!r}; options: "
                              + ", ".join(str(i) for i in _IMPLS))

@@ -27,34 +27,11 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "packet_fields.cuh"
+
 namespace {
 
-// op / predicate / field codes: repro_torch/core/features.py
-constexpr int OP_COUNT = 1, OP_SUM = 2, OP_MAX = 3, OP_MIN = 4, OP_LAST = 5,
-              OP_SUMSQ = 6, OP_FIRST = 7;
-constexpr int PRED_TRUE = 0, PRED_FWD = 1, PRED_BWD = 2, PRED_SYN = 3,
-              PRED_ACK = 4, PRED_FIN = 5, PRED_RST = 6, PRED_PSH = 7,
-              PRED_URG = 8;
-constexpr int PKT_DIR = 2, PKT_FLAGS = 3, PKT_VALID = 5, PKT_NFIELDS = 6;
-
-__device__ __forceinline__ bool pred_mask(const float* __restrict__ pk,
-                                          int pred) {
-  if (!(pk[PKT_VALID] > 0.0f)) return false;
-  const float direc = pk[PKT_DIR];
-  const int flags = (int)pk[PKT_FLAGS];  // float -> int32 truncation
-  switch (pred) {
-    case PRED_TRUE: return true;
-    case PRED_FWD: return direc == 0.0f;
-    case PRED_BWD: return direc == 1.0f;
-    case PRED_SYN: return (flags & 1) > 0;
-    case PRED_ACK: return (flags & 2) > 0;
-    case PRED_FIN: return (flags & 4) > 0;
-    case PRED_RST: return (flags & 8) > 0;
-    case PRED_PSH: return (flags & 16) > 0;
-    case PRED_URG: return (flags & 32) > 0;
-    default: return false;
-  }
-}
+using namespace splidt;
 
 __global__ void feature_window_kernel(
     const float* __restrict__ pkts,     // (B, W, 6), flow stride in floats
@@ -71,7 +48,6 @@ __global__ void feature_window_kernel(
   const int op = slot_op[i];
   const int field = slot_field[i];
   const int pred = slot_pred[i];
-  const bool has_field = field >= 0 && field < PKT_NFIELDS;
   const float* row = pkts + b * flow_stride;
 
   float count = 0.0f, total = 0.0f, sumsq = 0.0f;
@@ -80,7 +56,7 @@ __global__ void feature_window_kernel(
   for (int w = 0; w < W; ++w) {
     const float* pk = row + (long long)w * PKT_NFIELDS;
     const bool m = pred_mask(pk, pred);
-    const float v = has_field ? pk[field] : 0.0f;
+    const float v = field_value(pk, field);
     const float mf = m ? 1.0f : 0.0f;
     const float tv = __fmul_rn(v, mf);
     const float sv = __fmul_rn(__fmul_rn(v, v), mf);

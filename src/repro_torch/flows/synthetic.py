@@ -16,6 +16,7 @@ Datasets (analogues of the paper's D1-D3):
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator, NamedTuple
 
 import numpy as np
 
@@ -276,3 +277,125 @@ def make_profile_dataset(
     pkts = _synth_packets(profiles, labels, lengths, rng)
     return FlowDataset(pkts, lengths, labels.astype(np.int64), n_classes,
                        f"profile_{profile}")
+
+
+# ---------------------------------------------------------------------------
+# replayable packet-arrival streams (flow-table serving workloads)
+# ---------------------------------------------------------------------------
+ARRIVAL_PROFILES = ("steady", "bursty")
+
+
+class PacketBatch(NamedTuple):
+    """One tick's worth of interleaved packet arrivals.
+
+    The wire-level unit the flow-table server ingests: packets from
+    many flows, in global arrival order.  ``flow_len`` is the in-band
+    flow length (Homa/NDP-style — the data plane parses it from the
+    transport header to know the window boundaries, exactly as
+    ``window_bounds`` assumes).  ``pkts`` rows keep the FLOW-RELATIVE
+    fields (timestamps, IATs) the training pipeline saw; ``arrival`` is
+    the global wall-clock time used only for interleaving and
+    timeout/eviction.
+    """
+    flow_id: np.ndarray    # (n,) int64 dataset row of each packet's flow
+    flow_len: np.ndarray   # (n,) int32 total packets of that flow
+    pkts: np.ndarray       # (n, PKT_NFIELDS) f32 flow-relative packet rows
+    arrival: np.ndarray    # (n,) f64 global arrival time, non-decreasing
+
+    @property
+    def n_packets(self) -> int:
+        return int(self.flow_id.shape[0])
+
+
+@dataclasses.dataclass
+class PacketStream:
+    """A seeded, replayable arrival-ordered packet stream over a dataset.
+
+    Produced by :func:`make_packet_stream`; a pure function of
+    ``(dataset, seed, profile)``, so any consumer (tests, benchmarks,
+    the serving layer) can replay the identical interleaving.
+    """
+    flow_id: np.ndarray    # (n_pkts,) int64
+    flow_len: np.ndarray   # (n_pkts,) int32
+    pkts: np.ndarray       # (n_pkts, PKT_NFIELDS) f32
+    arrival: np.ndarray    # (n_pkts,) f64 sorted ascending
+    labels: np.ndarray     # (n_flows,) ground truth, indexed by flow_id
+    profile: str
+
+    @property
+    def n_packets(self) -> int:
+        return int(self.flow_id.shape[0])
+
+    @property
+    def n_flows(self) -> int:
+        return int(self.labels.shape[0])
+
+    def slice(self, lo: int, hi: int) -> PacketBatch:
+        return PacketBatch(self.flow_id[lo:hi], self.flow_len[lo:hi],
+                           self.pkts[lo:hi], self.arrival[lo:hi])
+
+    def ticks(self, pkts_per_tick: int) -> Iterator[PacketBatch]:
+        """Replay the stream in fixed-size arrival-order ticks."""
+        if pkts_per_tick <= 0:
+            raise ValueError("pkts_per_tick must be positive")
+        for lo in range(0, self.n_packets, pkts_per_tick):
+            yield self.slice(lo, min(lo + pkts_per_tick, self.n_packets))
+
+
+def make_packet_stream(
+    ds: FlowDataset,
+    *,
+    seed: int = 0,
+    profile: str = "steady",
+    concurrency: float = 32.0,
+    burst_size: int = 16,
+) -> PacketStream:
+    """Interleave a dataset's flows into one arrival-ordered stream.
+
+    Each flow keeps its internal packet timing (the flow-relative
+    ``PKT_TS`` cumsum the generator produced) and is given a global
+    start offset; packets are then merged by global arrival time.
+    ``concurrency`` scales how many flows overlap on average (total
+    flow airtime divided by the stream's span).  Profiles:
+
+    ``steady``  flow starts are uniform over the span — resident-flow
+                count hovers around ``concurrency``;
+    ``bursty``  flows arrive in clusters of ~``burst_size`` (burst
+                centres uniform over the span, small in-burst jitter) —
+                the flow table sees spiky occupancy and the eviction
+                path actually fires.
+
+    Per-flow packet order in the stream always matches packet order in
+    the dataset (ties broken flow-major), so folding the stream through
+    the flow table reproduces the offline windows bit-for-bit.
+    """
+    if profile not in ARRIVAL_PROFILES:
+        raise ValueError(
+            f"unknown profile {profile!r}; options {ARRIVAL_PROFILES}")
+    rng = np.random.default_rng(np.random.SeedSequence([0x57EA, seed]))
+    n = ds.n_flows
+    lengths = ds.lengths.astype(np.int64)
+    durations = ds.packets[np.arange(n), lengths - 1, PKT_TS].astype(np.float64)
+    span = max(float(durations.sum()) / max(concurrency, 1e-9), 1e-9)
+    if profile == "steady":
+        starts = rng.uniform(0.0, span, size=n)
+    else:
+        n_bursts = max(1, n // max(burst_size, 1))
+        centres = rng.uniform(0.0, span, size=n_bursts)
+        starts = (centres[rng.integers(0, n_bursts, size=n)]
+                  + rng.exponential(span / (8.0 * n_bursts), size=n))
+
+    total = int(lengths.sum())
+    flow_id = np.repeat(np.arange(n, dtype=np.int64), lengths)
+    flow_len = np.repeat(lengths.astype(np.int32), lengths)
+    pkts = np.concatenate(
+        [ds.packets[i, :lengths[i]] for i in range(n)], axis=0)
+    local_ts = pkts[:, PKT_TS].astype(np.float64)
+    arrival = np.repeat(starts, lengths) + local_ts
+    # stable sort: equal arrivals keep flow-major order, so a flow's
+    # packets never reorder
+    order = np.argsort(arrival, kind="stable")
+    assert order.shape[0] == total
+    return PacketStream(flow_id=flow_id[order], flow_len=flow_len[order],
+                        pkts=pkts[order], arrival=arrival[order],
+                        labels=ds.labels.copy(), profile=profile)

@@ -4,8 +4,9 @@ Each source is compiled by ``nvcc`` into its own shared library with a
 plain C interface and loaded with ``ctypes`` -- no PyTorch headers, so a
 build takes seconds.  Libraries go to ``build/repro_torch/<hash>/`` at
 the root of the checkout (``.gitignore`` lists ``build/``), keyed by a
-hash of the sources and the flags, on first use.  All sources are
-compiled at once, one ``nvcc`` process each.
+hash of the sources, the shared headers (``csrc/*.cuh``) and the flags,
+on first use.  All sources are compiled at once, one ``nvcc`` process
+each.
 
 This module is imported only by the kernel wrappers, inside the call
 that launches a kernel, so importing the package or running the plain
@@ -22,7 +23,7 @@ import shutil
 import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("feature_window.cu", "dt_traverse.cu")
+SOURCES = ("feature_window.cu", "dt_traverse.cu", "feature_update.cu")
 # -fmad=false: no multiply-add contraction anywhere (docs/PARITY.md §1);
 # the kernels also spell their float ops with __fmul_rn/__fadd_rn
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -33,9 +34,11 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 
 
 def build_dir() -> pathlib.Path:
-    """``build/repro_torch/<hash of sources and flags>/`` in the checkout."""
+    """``build/repro_torch/<hash>/`` in the checkout, keyed by the flags,
+    every source and every shared header (a header edit rebuilds all)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    headers = sorted(p.name for p in CSRC.glob("*.cuh"))
+    for name in (*SOURCES, *headers):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     root = pathlib.Path(__file__).resolve().parents[3]

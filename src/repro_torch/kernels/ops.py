@@ -22,7 +22,10 @@ from repro_torch.core.tables import PackedTables
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.dispatch import dispatch_dt_traverse
 from repro_torch.kernels.dt_traverse import BLOCK_B
-from repro_torch.kernels.feature_window import feature_window_kernel
+from repro_torch.kernels.feature_window import (
+    feature_update_finalize_kernel, feature_update_kernel,
+    feature_window_kernel,
+)
 
 
 # ---------------------------------------------------------------------------
@@ -135,6 +138,31 @@ def feature_window_rows(pkts, slot_op, slot_field, slot_pred, slot_init
                                      slot_init)
     return _ref.feature_window_ref(pkts, slot_op, slot_field, slot_pred,
                                    slot_init)
+
+
+def feature_update(pkt, slot_op, slot_field, slot_pred, acc, seen
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold one packet per row into ``(acc, seen)``: the fold kernel for a
+    CUDA tensor, ``feature_update_ref`` for a CPU tensor."""
+    if pkt.device.type == "cuda":
+        return feature_update_kernel(pkt, slot_op, slot_field, slot_pred,
+                                     acc, seen)
+    return _ref.feature_update_ref(pkt, slot_op, slot_field, slot_pred, acc,
+                                   seen)
+
+
+def feature_update_finalize(pkt, slot_op, slot_field, slot_pred, slot_init,
+                            acc, seen
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """Fold one packet per row and finalize: ``(acc2, seen2, regs)`` from
+    the fold-and-finalize kernel for a CUDA tensor,
+    ``feature_update_finalize_ref`` for a CPU tensor."""
+    if pkt.device.type == "cuda":
+        return feature_update_finalize_kernel(
+            pkt, slot_op, slot_field, slot_pred, slot_init, acc, seen)
+    return _ref.feature_update_finalize_ref(pkt, slot_op, slot_field,
+                                            slot_pred, slot_init, acc, seen)
 
 
 def feature_window(

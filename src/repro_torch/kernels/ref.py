@@ -104,6 +104,89 @@ def feature_window_ref(
 
 
 # ---------------------------------------------------------------------------
+# feature_update: incremental per-packet window state (flow-table serving)
+# ---------------------------------------------------------------------------
+#
+# The live flow table folds ONE packet at a time into per-slot state
+# ``(acc, seen)`` instead of rebuilding the window.  The fold is the
+# same chain as feature_window_ref (docs/PARITY.md §5): the additive
+# ops compute ``0.0 + x0 + x1 + ...`` where ordered_wsum computes
+# ``x0 + x1 + ...`` (they differ only in the sign of a zero), MAX/MIN
+# carry the ∓inf identity, FIRST latches on the seen bit and LAST
+# overwrites, and finalisation applies the empty-window fallbacks.
+
+
+def feature_state_init(slot_op: torch.Tensor
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Blank window state for ``slot_op`` (n, k) codes: ``(acc (n, k)
+    f32, seen (n, k) int32)``, MAX/MIN at ∓inf, every other op at 0.0.
+
+    The fills take Python scalars: a ``torch.tensor`` made for a CUDA
+    device is a host-to-device copy that syncs the stream, and the tick
+    engine calls this once per hop round."""
+    acc = torch.zeros(slot_op.shape, dtype=torch.float32,
+                      device=slot_op.device)
+    acc = acc.masked_fill(slot_op == F.OP_MIN, float("inf"))
+    acc = acc.masked_fill(slot_op == F.OP_MAX, float("-inf"))
+    return acc, torch.zeros(slot_op.shape, dtype=torch.int32,
+                            device=slot_op.device)
+
+
+def feature_update_ref(
+    pkt: torch.Tensor,         # (n, PKT_NFIELDS) f32, ONE packet per row
+    slot_op: torch.Tensor,     # (n, k) int32 (gathered by SID)
+    slot_field: torch.Tensor,  # (n, k) int32
+    slot_pred: torch.Tensor,   # (n, k) int32
+    acc: torch.Tensor,         # (n, k) f32 running state
+    seen: torch.Tensor,        # (n, k) int32 "any masked packet yet" bit
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold one packet per row into the window state; returns the new
+    ``(acc, seen)``.  An invalid packet leaves the state unchanged up to
+    the sign of a zero."""
+    mask = _pred_mask(pkt[:, None, :], slot_pred)[:, 0]      # (n, k)
+    val = _field_vals(pkt[:, None, :], slot_field)[:, 0]     # (n, k)
+    mf = mask.to(torch.float32)
+    op = slot_op
+    additive = (op == F.OP_COUNT) | (op == F.OP_SUM) | (op == F.OP_SUMSQ)
+    contrib = torch.where(op == F.OP_COUNT, mf,
+                          torch.where(op == F.OP_SUM, val * mf,
+                                      (val * val) * mf))
+    out = torch.where(additive, acc + contrib, acc)
+    out = torch.where((op == F.OP_MAX) & mask, torch.maximum(acc, val), out)
+    out = torch.where((op == F.OP_MIN) & mask, torch.minimum(acc, val), out)
+    out = torch.where((op == F.OP_FIRST) & mask & (seen == 0), val, out)
+    out = torch.where((op == F.OP_LAST) & mask, val, out)
+    return out, seen | mask.to(torch.int32)
+
+
+def feature_finalize_ref(
+    acc: torch.Tensor,         # (n, k) f32 folded state
+    seen: torch.Tensor,        # (n, k) int32
+    slot_op: torch.Tensor,     # (n, k) int32
+    slot_init: torch.Tensor,   # (n, k) f32 (MIN's empty-window fallback)
+) -> torch.Tensor:
+    """Folded state -> registers, equal to the rebuilt window's."""
+    op = slot_op
+    empty = seen == 0
+    zero = torch.zeros((), dtype=torch.float32, device=acc.device)
+    out = torch.where((op == F.OP_MAX) & empty, zero, acc)
+    out = torch.where((op == F.OP_MIN) & empty, slot_init, out)
+    return torch.where(((op == F.OP_FIRST) | (op == F.OP_LAST)) & empty,
+                       zero, out)
+
+
+def feature_update_finalize_ref(pkt, slot_op, slot_field, slot_pred,
+                                slot_init, acc, seen):
+    """Fold one packet per row AND finalize: ``(acc2, seen2, regs)``,
+    exactly :func:`feature_update_ref` then :func:`feature_finalize_ref`
+    on the new state."""
+    acc2, seen2 = feature_update_ref(pkt, slot_op, slot_field, slot_pred,
+                                     acc, seen)
+    return acc2, seen2, feature_finalize_ref(acc2, seen2, slot_op,
+                                             slot_init)
+
+
+# ---------------------------------------------------------------------------
 # dt_traverse: range-mark matching
 # ---------------------------------------------------------------------------
 def dt_traverse_ref(

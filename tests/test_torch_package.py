@@ -68,15 +68,17 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
     out = _run(
         "import sys, repro_torch, repro_torch.convert, "
         "repro_torch.core.inference, repro_torch.flows.windows, "
-        "repro_torch.kernels.ops\n"
+        "repro_torch.kernels.ops, repro_torch.kernels.tick_step, "
+        "repro_torch.obs, repro_torch.serve\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')))\n")
     assert out.strip() == "[]"
 
 
 def test_import_and_cpu_path_never_call_nvcc():
-    """Importing every module and running the CPU engine starts no
-    process (no ``nvcc``) and loads no kernel library."""
+    """Importing every module and running the CPU engine and a CPU
+    flow-table server (both tick engines) starts no process (no
+    ``nvcc``) and loads no kernel library."""
     out = _run(
         "import subprocess\n"
         "def boom(*a, **k): raise AssertionError('process started')\n"
@@ -85,17 +87,52 @@ def test_import_and_cpu_path_never_call_nvcc():
         "from repro_torch.kernels import _build, ops, dispatch\n"
         "from repro_torch.core.partition import train_partitioned_dt\n"
         "from repro_torch.core.inference import Engine\n"
-        "from repro_torch.flows.synthetic import make_dataset\n"
+        "from repro_torch.flows.synthetic import make_dataset, "
+        "make_packet_stream\n"
         "from repro_torch.flows.windows import window_features, "
         "window_packets\n"
+        "from repro_torch.serve import FlowTableServer\n"
         "ds = make_dataset('d2', 120, seed=1)\n"
         "X = window_features(ds, 2, device='cpu')\n"
         "pdt = train_partitioned_dt(X, ds.labels, partition_sizes=[2, 2], "
         "k=3)\n"
-        "r = Engine.from_model(pdt, device='cpu').run(window_packets(ds, 2))\n"
+        "eng = Engine.from_model(pdt, device='cpu')\n"
+        "r = eng.run(window_packets(ds, 2))\n"
         "assert r.labels.shape == (120,)\n"
+        "for te in ('fused', 'legacy'):\n"
+        "    srv = FlowTableServer(eng, n_buckets=4, bucket_size=4, "
+        "tick_engine=te)\n"
+        "    n = sum(srv.ingest(b).n_flows for b in "
+        "make_packet_stream(ds, seed=2).ticks(500))\n"
+        "    assert n + srv.flush().n_flows == 120\n"
         "print(len(_build._LIBS))\n")
     assert out.strip() == "0"
+
+
+def test_build_dir_hashes_shared_headers(tmp_path, monkeypatch):
+    """An edit to a shared ``csrc/*.cuh`` header changes the build key,
+    so every kernel that includes it is rebuilt; the sources and flags
+    are keyed as before."""
+    from repro_torch.kernels import _build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _build.CSRC.iterdir():
+        (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers and "packet_fields.cuh" in [h.name for h in headers]
+    base = _build.build_dir()
+    assert base == _build.build_dir()              # deterministic
+    header = csrc / "packet_fields.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    edited = _build.build_dir()
+    assert edited != base and edited.parent == base.parent
+    (csrc / "extra.cuh").write_text("#pragma once\n")
+    assert _build.build_dir() != edited            # a new header counts
+    src = csrc / "feature_update.cu"
+    before = _build.build_dir()
+    src.write_bytes(src.read_bytes() + b"\n")
+    assert _build.build_dir() != before
 
 
 @pytest.fixture(scope="module")
@@ -157,7 +194,73 @@ def test_kernel_wrappers_refuse_cpu_tensors(tiny_model):
                                        block_b=8)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_step(8)(pk[:, 0], sid, dev)
+    acc, seen = ref.feature_state_init(rows[0])
+    pkt = pk[:, 0, 0].contiguous()
+    with pytest.raises(ValueError, match="CUDA"):
+        feature_window.feature_update_kernel(pkt, *rows[:3], acc, seen)
+    with pytest.raises(ValueError, match="CUDA"):
+        feature_window.feature_update_finalize_kernel(pkt, *rows, acc, seen)
     assert feature_window.launches == 0 and dt_traverse.launches == 0
+    assert feature_window.update_launches == 0
+    assert feature_window.update_finalize_launches == 0
+
+
+def test_spans_nest_and_accumulate(monkeypatch):
+    """``obs.span`` aggregates calls and host seconds per nesting path
+    (what ``chip_smoke.py`` reports per tick phase); ``SPLIDT_OBS=0``
+    makes it a shared no-op."""
+    from repro_torch.obs import reset_spans, span, span_totals, trace
+    monkeypatch.setattr(trace, "_ENABLED", True)
+    reset_spans()
+    for _ in range(3):
+        with span("tick/dispatch"):
+            with span("tick/fetch"):
+                pass
+    with span("tick/admit"):
+        pass
+    t = span_totals()
+    assert list(t) == ["tick/admit", "tick/dispatch",
+                       "tick/dispatch > tick/fetch"]
+    assert t["tick/dispatch"]["calls"] == 3
+    assert t["tick/dispatch > tick/fetch"]["calls"] == 3
+    assert t["tick/dispatch"]["s"] >= t["tick/dispatch > tick/fetch"]["s"]
+    reset_spans()
+    assert span_totals() == {}
+    monkeypatch.setattr(trace, "_ENABLED", False)
+    assert span("a") is span("b")
+    with span("a"):
+        pass
+    assert span_totals() == {}
+
+
+def test_metric_registry():
+    from repro_torch.obs import MetricRegistry, exp_edges
+    reg = MetricRegistry()
+    c = reg.counter("serve_packets_total", "packets")
+    c.inc(3)
+    assert reg.counter("serve_packets_total") is c and c.value == 3
+    with pytest.raises(ValueError, match="only go up"):
+        c.inc(-1)
+    reg.gauge("serve_recirc_overhead", "ratio").set(0.25)
+    h = reg.histogram("ttd", "s", edges=[0.001, 0.01, 0.1, 1.0])
+    h.record_many([0.0005, 0.05, 0.05, 2.0])
+    h.record_many([])
+    assert [int(x) for x in h.counts] == [1, 0, 2, 0, 1] and h.total == 4
+    assert reg.histogram("ttd") is h
+    with pytest.raises(ValueError, match="must pass edges"):
+        reg.histogram("other")
+    with pytest.raises(ValueError, match="ascending"):
+        reg.histogram("bad", edges=[1.0, 1.0])
+    snap = reg.snapshot()
+    assert snap["counters"] == {"serve_packets_total": {"value": 3,
+                                                        "help": "packets"}}
+    assert snap["gauges"]["serve_recirc_overhead"]["value"] == 0.25
+    assert snap["histograms"]["ttd"]["counts"] == [1, 0, 2, 0, 1]
+    assert snap["histograms"]["ttd"]["sum"] == 2.1005
+    e = exp_edges(1e-3, 1e1, 5)
+    np.testing.assert_allclose(e, [1e-3, 1e-2, 1e-1, 1.0, 1e1])
+    with pytest.raises(ValueError):
+        exp_edges(1.0, 1.0, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -257,3 +360,89 @@ def test_engine_cuda_equals_fused_and_oracle_on_card(card):
         np.testing.assert_array_equal(getattr(fused, name), want)
     for a, b in zip(res.regs_trace, fused.regs_trace):
         np.testing.assert_array_equal(a, b)
+
+
+def _card_fold_inputs(device, C: int, k: int):
+    """One packet per row and a mid-window ``(acc, seen)`` state, made on
+    the card from a seed: every op and predicate code, out-of-range field
+    codes, invalid packets and order-sensitive values (+-1e8)."""
+    g = torch.Generator(device=device).manual_seed(C + k)
+    u = lambda *s: torch.rand(*s, generator=g, device=device)
+    pkt = torch.zeros(C, F.PKT_NFIELDS, device=device)
+    pkt[:, F.PKT_TS] = u(C)
+    spike = u(C)
+    pkt[:, F.PKT_SIZE] = torch.where(
+        spike < 0.1, 1e8, torch.where(spike > 0.9, -1e8,
+                                      torch.floor(40 + 1460 * u(C))))
+    pkt[:, F.PKT_DIR] = (u(C) < 0.4).float()
+    pkt[:, F.PKT_FLAGS] = torch.floor(64 * u(C))
+    pkt[:, F.PKT_IAT] = u(C) * 1e-2
+    pkt[:, F.PKT_VALID] = (u(C) < 0.8).float()
+    ri = lambda hi, lo=0: (lo + torch.floor((hi - lo) * u(C, k))).to(
+        torch.int32)
+    op, field, pred = ri(F.N_OPS), ri(F.PKT_NFIELDS + 2, -1), ri(F.N_PREDS + 1)
+    init = torch.where(u(C, k) < 0.5, torch.finfo(torch.float32).max,
+                       u(C, k))
+    acc0, _ = ref.feature_state_init(op)
+    seen = (u(C, k) < 0.5).to(torch.int32)
+    acc = torch.where(seen > 0, torch.where(u(C, k) < 0.5, 1e8, -1e8)
+                      + torch.floor(100 * u(C, k)), acc0)
+    return pkt, op, field, pred, init, acc, seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,k", [(32768, 4), (1000, 4), (333, 41)])
+def test_fold_kernels_equal_plain_on_card(card, C, k):
+    pkt, op, field, pred, init, acc, seen = _card_fold_inputs(card, C, k)
+    before = (feature_window.update_launches,
+              feature_window.update_finalize_launches)
+    got = feature_window.feature_update_kernel(pkt, op, field, pred, acc,
+                                               seen)
+    got_f = feature_window.feature_update_finalize_kernel(
+        pkt, op, field, pred, init, acc, seen)
+    torch.cuda.synchronize()
+    assert (feature_window.update_launches,
+            feature_window.update_finalize_launches) == (before[0] + 1,
+                                                         before[1] + 1)
+    for a, b in zip(got, ref.feature_update_ref(pkt, op, field, pred, acc,
+                                                seen)):
+        assert torch.equal(a, b)
+    for a, b in zip(got_f, ref.feature_update_finalize_ref(
+            pkt, op, field, pred, init, acc, seen)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tick_engine", ["fused", "legacy"])
+def test_cuda_server_equals_fused_server_on_card(card, tick_engine):
+    """The kernel route and the plain route of the flow-table server give
+    the same verdicts, call by call and row by row, and the same stats,
+    with spill and timeout eviction in play."""
+    from repro_torch.flows.synthetic import make_packet_stream
+    from repro_torch.serve import FlowTableServer
+    ds = make_dataset("d2", 600)
+    X = window_features(ds, 3)
+    pdt = train_partitioned_dt(X, ds.labels, partition_sizes=[2, 3, 2], k=4)
+    eng = Engine.from_model(pdt)
+    stream = make_packet_stream(ds, seed=3, concurrency=128.0)
+    out = {}
+    for impl in ("cuda", "fused"):
+        srv = FlowTableServer(eng, n_buckets=8, bucket_size=8,
+                              timeout=0.005, tick_engine=tick_engine,
+                              options=EngineOptions(impl=impl))
+        before = (feature_window.update_launches,
+                  feature_window.update_finalize_launches)
+        calls = [srv.ingest(b) for b in stream.ticks(1024)] + [srv.flush()]
+        launched = (feature_window.update_launches - before[0],
+                    feature_window.update_finalize_launches - before[1])
+        out[impl] = (calls, srv.stats.as_dict(), launched)
+    cuda, cstats, claunch = out["cuda"]
+    fused, fstats, flaunch = out["fused"]
+    assert len(cuda) == len(fused)
+    for a, b in zip(cuda, fused):
+        for name in ("flow_id", "labels", "recircs", "exit_partition"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    assert cstats == fstats
+    assert cstats["spilled"] > 0 and cstats["evicted"] > 0
+    assert flaunch == (0, 0)
+    assert claunch[0 if tick_engine == "legacy" else 1] > 0
