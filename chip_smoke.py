@@ -7,7 +7,8 @@ Phases, each printing one JSON line (a failed check raises, so the script
 exits nonzero; nothing is caught and passed over):
 
 1. device  -- ``nvidia-smi`` name and power limit, and the time to build
-   both CUDA kernels from ``src/repro_torch/csrc`` with ``nvcc``;
+   every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc`` (one
+   process per source, all at once);
 2. main    -- ``make_dataset("d2", 6000)`` -> ``window_features`` (kernel A)
    -> ``train_partitioned_dt([3, 3, 3], k=4)`` -> ``window_packets`` of the
    test split tiled to 2^20 flows -> ``Engine.from_model(pdt).run`` on the
@@ -35,10 +36,34 @@ exits nonzero; nothing is caught and passed over):
    the ``cuda`` server against the ``fused`` server for both tick engines:
    every verdict in order and every stats field;
 7. serve_times -- CUDA-event medians of both fold kernels and their plain
-   versions beside their bounds, and one traced steady-state tick; then
-   ``queued_bounds``, the bound of the TPU kernel still to port
-   (``chunk_scan``) at the LM prototype's shape, computed, not run;
-8. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
+   versions, the kernels' device time from CUDA-graph replay, beside
+   their bounds, and one traced steady-state tick;
+8. lm -- the LM slice at full width: ``rwkv6-1.6b`` (24 layers, D = 2048,
+   32 heads of 64, vocab 65536, chunk 128, 1.6 B random f32 parameters
+   made on the card from a seeded generator) served by
+   ``ContinuousBatcher(slots=8, max_len=2048)``: 16 requests, prompts of
+   300-1100 tokens drawn from the seed, 16 greedy tokens each,
+   ``run_until_drained()``.  All complete, occupancy never exceeds 8, the
+   ``chunk_scan`` kernel launched 24 x (prefills + decode steps) times,
+   each request's tokens equal an isolated batch-1 prefill and decode
+   (``==``); one prompt's prefill on the plain route with the kernel run
+   beside every layer on that layer's inputs, each within the kernel
+   tolerance below, and the logits of the full-width model cut to two
+   layers within 0.05 * max |logit| of the plain route (at 24 layers the
+   ratio is printed beside its floor, the plain route against itself
+   with o nudged by 1e-7); prefill and decode tokens/s, tick p50/p99,
+   peak device memory;
+9. lm_check -- the ``chunk_scan`` kernel against its plain version in both
+   forms at B*H = 32, T = 1024, C = 128; T = 1; T = 300 (padded); dk = dv =
+   16 at C = 16; decays U[0.5, 0.999] and the model's own (layer 0 of a
+   prefill): o within 2e-4 * max(|o|, 1), the state within 3e-4; and the
+   naive recurrence at decays >= 0.5 (at the model's decays its distance
+   is printed, not gated: the reference's +-45 clip);
+10. lm_times -- one traced decode tick and one traced prefill; CUDA-event
+   medians of the kernel and its plain version at the prefill, decode and
+   B*H = 256, T = 4096 shapes, and the kernel's device time from CUDA-graph
+   replay, beside their bounds;
+11. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 Imports nothing of JAX or of the JAX package.  Exits nonzero when there is
@@ -71,10 +96,20 @@ CHECK_TIMEOUT = 0.05      # stream seconds; evicts some idle flows (a
 CHECK_TICK = 4096
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+LM_ARCH = "rwkv6-1.6b"
+LM_SLOTS, LM_MAX_LEN = 8, 2048
+LM_REQUESTS, LM_MAX_NEW = 16, 16
+LM_PROMPT = (300, 1100)    # prompt lengths, drawn from the seed
+LM_SEED = 13
+LOGIT_TOL = 0.05           # x max |logit|: the bound of tests/test_models.py
+LOGIT_DEPTH = 2            # layers of the logits gate (the reduced depth)
+SCAN_O_TOL, SCAN_S_TOL = 2e-4, 3e-4   # tests/test_kernels.py
+T0 = time.perf_counter()
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - T0}), flush=True)
 
 
 def check(cond: bool, what: str) -> None:
@@ -100,23 +135,19 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, key: str, reps: int = 50) -> float:
-    """Device time per call of the kernel whose profiler name contains
-    ``key``, over ``reps`` traced calls of ``fn`` (which must launch no
-    other kernel of that name): the launch overhead around it excluded."""
+def graph_ms(fn, n: int, reps: int = 5) -> float:
+    """Device time per call of ``fn``: ``n`` calls captured in one CUDA
+    graph and replayed (CUDA-event median over ``reps`` replays), so no
+    host launch cost is in it and no profiler is needed."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(n):
             fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if key in e.key and str(e.device_type).endswith("CUDA"))
-    check(total_us > 0, f"the profiler saw no {key} on the card")
-    return total_us / reps / 1e3
+    torch.cuda.synchronize()
+    return cuda_ms(g.replay, reps=reps, warmup=1) / n
 
 
 def host_s(fn, reps: int) -> float:
@@ -160,6 +191,7 @@ def profile_run(fn, top: int = 12, warmup: bool = True,
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_event_kinds": len(events),
            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
            "top": [{"name": e.key[:80], "calls": e.count,
                     "device_ms": e.self_device_time_total / 1e3}
@@ -195,23 +227,332 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def chunk_scan_bound() -> dict:
-    """The least time of the kernel still to port, ``chunk_scan_pallas``
-    (src/repro/kernels/chunk_scan.py:92), at the shape the LM prototype
-    gives it: rwkv6-1.6b's time-mix (32 heads of 64, chunk 128) at the
-    ``train_4k`` shape (batch 256 x 4096 tokens), one layer, f32.  Bytes:
-    q, k, decay (B*H, T, dk), v and o (B*H, T, dv), the bonus and the
-    state in and out.  Operations: per chunk the two intra-chunk products
-    (C x C x dk, C x C x dv) and the two state products (C x dk x dv
-    each), 2 flops a multiply-add, in f32 outside the tensor cores (the
-    port is to keep TF32 off)."""
-    bh, t, dk, dv, c = 256 * 32, 4096, 64, 64, 128
+def chunk_scan_bound(bh: int, t: int, dk: int, dv: int, c: int,
+                     use_bonus: bool) -> dict:
+    """The least time of ``chunk_scan`` (the kernel that replaces
+    ``chunk_scan_pallas``, src/repro/kernels/chunk_scan.py:92) at one
+    shape, f32.  Bytes: q, k, decay (B*H, T, dk), v and o (B*H, T, dv),
+    the bonus and the state in and out, each once.  Operations, 2 flops a
+    multiply-add, in f32 outside the tensor cores (no TF32), per chunk of
+    C = min(c, T): the two intra-chunk products over the causal triangle
+    only, C (C + 1) / 2 entries of dk + dv multiply-adds (the GLA form's
+    inclusive triangle; the bonus form's strictly causal one plus its
+    diagonal term (q u k) v, with C dk more multiplies for u), and the
+    two state products (C x dk x dv each).  The decay's logs, prefix sums
+    and exponents are left out."""
+    c = min(c, t)
     n_bytes = 4 * (bh * t * (3 * dk + 2 * dv) + bh * dk + 2 * bh * dk * dv)
-    n_ops = bh * (t // c) * (2 * c * c * (dk + dv) + 2 * 2 * c * dk * dv)
+    intra = c * (c + 1) * (dk + dv) + (c * dk if use_bonus else 0)
+    n_ops = bh * (t // c) * (intra + 2 * 2 * c * dk * dv)
     ms, by = bound_ms(n_bytes, n_ops)
-    return {"shape": f"B*H={bh},T={t},dk={dk},dv={dv},C={c}",
-            "bytes": n_bytes, "ops": n_ops, "bound_ms": ms, "bound_by": by,
-            "ms": "not measured"}
+    return {"shape": f"B*H={bh},T={t},dk={dk},dv={dv},C={c},"
+                     f"bonus={use_bonus}",
+            "bytes": n_bytes, "ops": n_ops, "bound_ms": ms, "bound_by": by}
+
+
+def first_layers(model, n: int):
+    """The config and model of ``model``'s first ``n`` layers, full width,
+    sharing its parameters."""
+    import dataclasses
+    from repro_torch.models import rwkv
+    lay = model.layers
+    tree = {"embed": model.embed.data, "ln_f": model.ln_f.data,
+            "head": model.head.data,
+            "layers": {"ln1": lay.ln1.data[:n], "ln2": lay.ln2.data[:n],
+                       "tm": {k: p.data[:n] for k, p in
+                              lay.tm.named_parameters()},
+                       "cm": {k: p.data[:n] for k, p in
+                              lay.cm.named_parameters()}}}
+    cfg = dataclasses.replace(model.cfg, n_layers=n)
+    return cfg, rwkv.RWKV6(cfg, tree)
+
+
+def lm_phases(card, smi: str) -> dict:
+    """Phases 8-10, the LM slice; returns its row of the kernels line."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import pspec
+    from repro_torch.kernels import chunk_scan as cs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import model_zoo
+    from repro_torch.models import rwkv as rwkv_mod
+    from repro_torch.serve import ContinuousBatcher, Request
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
+
+    # f32 products in full f32 on the plain route, as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- 8. rwkv6-1.6b at full width behind the continuous batcher -----------
+    cfg = get_arch(LM_ARCH)
+    H, hd = cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim
+    check((cfg.n_layers, cfg.d_model, H, hd, cfg.d_ff, cfg.vocab,
+           cfg.ssm.chunk) == (24, 2048, 32, 64, 7168, 65536, 128),
+          f"{LM_ARCH} at its published widths")
+    zoo = model_zoo.get_model(cfg)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=card).manual_seed(0)
+    model = zoo.build(cfg, pspec.init_params(zoo.param_defs(cfg), gen, card))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_count(), "every declared parameter is made")
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg)
+    # warm-up outside the counted run: cuBLAS handles, the bf16 weight copy
+    with torch.no_grad():
+        warm = torch.from_numpy(np.asarray([prompts[-1][:256]], np.int32))
+        prefill(model, {"tokens": warm.to(card)},
+                zoo.init_cache(cfg, 1, LM_MAX_LEN, card))
+    torch.cuda.synchronize()
+
+    eng = ContinuousBatcher(cfg, model, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    step_s = {"prefill": [], "decode": []}
+
+    def timed(name, fn):
+        def run(*a):
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            step_s[name].append(time.perf_counter() - t)
+            return out
+        return run
+
+    eng.prefill = timed("prefill", eng.prefill)
+    eng.decode = timed("decode", eng.decode)
+    reqs = [Request(rid=i, prompt=p, max_new=LM_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tick_s = []
+    cs.launches = 0
+    t0 = time.perf_counter()
+    while eng.queue or any(eng.live):
+        t = time.perf_counter()
+        eng.tick()
+        tick_s.append(time.perf_counter() - t)
+    wall_s = time.perf_counter() - t0
+    launches = cs.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats
+    check(st.completed == LM_REQUESTS and all(
+        r.done and len(r.out) == LM_MAX_NEW for r in reqs),
+        f"all {LM_REQUESTS} requests complete with {LM_MAX_NEW} tokens")
+    check(max(st.slot_occupancy) <= LM_SLOTS, "occupancy never exceeds 8")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+          "tokens in the vocabulary")
+    n_pre, n_dec = len(step_s["prefill"]), len(step_s["decode"])
+    check(n_pre == st.admitted == LM_REQUESTS and n_dec == st.decode_tokens,
+          "one prefill per request, one decode step per decoded token")
+    check(launches == cfg.n_layers * (n_pre + n_dec),
+          f"chunk_scan launched {launches} times, want "
+          f"{cfg.n_layers} x ({n_pre} + {n_dec})")
+
+    # slot isolation: each request alone, batch 1, kernel route
+    for r in reqs:
+        cache = zoo.init_cache(cfg, 1, LM_MAX_LEN, card)
+        toks = torch.tensor([r.prompt], dtype=torch.int32, device=card)
+        lg, cache = prefill(model, {"tokens": toks}, cache)
+        out = [int(torch.argmax(lg[0, -1]))]
+        while len(out) < LM_MAX_NEW:
+            nxt, cache = decode(model, torch.tensor(
+                [[out[-1]]], dtype=torch.int32, device=card), cache)
+            out.append(int(nxt[0, 0]))
+        check(out == r.out, f"request {r.rid}: batcher tokens == isolated")
+
+    # one prompt's prefill, kernel route against plain route.  (a) Every
+    # layer: the plain route's forward, with the kernel run beside it on
+    # that layer's very inputs, within the kernel tolerance.  (b) Logits:
+    # the full-width model cut to its first LOGIT_DEPTH layers, within
+    # 0.05 x max |logit|.  (c) At all 24 layers the logits are printed
+    # beside the floor: the plain route against itself with every
+    # layer's o scaled by (1 + 1e-7), about one f32 ulp.  Random
+    # weights amplify any such difference layer after layer, so a bound
+    # on 24-layer logits would not test the kernel.
+    toks = torch.tensor([prompts[0]], dtype=torch.int32, device=card)
+    shadow, captured = [], []
+    real_scan = rwkv_mod.ops.chunk_scan
+
+    def beside(*a, **kw):
+        o, s = real_scan(*a, **kw)                   # the plain route
+        if not captured:
+            captured.append((a, kw))
+        ko, ks = real_scan(*a, **dict(kw, impl=None))   # the kernel
+        shadow.append((float((ko - o).abs().max()),
+                       max(float(o.abs().max()), 1.0),
+                       float((ks - s).abs().max())))
+        return o, s
+
+    def nudged(*a, **kw):
+        o, s = real_scan(*a, **kw)
+        return o * (1.0 + 1e-7), s
+
+    def prefill_logits(m, c, impl, scan=None):
+        rwkv_mod.ops.chunk_scan = scan or real_scan
+        try:
+            with torch.no_grad():
+                lg, _, _ = m({"tokens": toks}, mode="prefill", impl=impl,
+                             cache=zoo.init_cache(c, 1, LM_MAX_LEN, card))
+        finally:
+            rwkv_mod.ops.chunk_scan = real_scan
+        return lg.float()
+
+    ratio = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    prefill_logits(model, cfg, "ref", scan=beside)
+    check(len(shadow) == cfg.n_layers and all(
+        eo <= SCAN_O_TOL * sc and es <= SCAN_S_TOL for eo, sc, es in shadow),
+        f"kernel within tolerance of the plain route at every layer: "
+        f"{shadow}")
+    lk = prefill_logits(model, cfg, None)
+    lp = prefill_logits(model, cfg, "ref")
+    ln = prefill_logits(model, cfg, "ref", scan=nudged)
+    check(bool(torch.isfinite(lk).all()) and lk.shape == (
+        1, len(prompts[0]), cfg.vocab), "finite logits of the right shape")
+    cut_cfg, cut = first_layers(model, LOGIT_DEPTH)
+    logit_ratio = ratio(prefill_logits(cut, cut_cfg, None),
+                        prefill_logits(cut, cut_cfg, "ref"))
+    del cut
+    check(logit_ratio <= LOGIT_TOL,
+          f"kernel-route logits at depth {LOGIT_DEPTH} within {LOGIT_TOL} x "
+          f"max |logit| of the plain route, got {logit_ratio}")
+    argmax_agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    pre_tok = int(sum(lens))
+    emit("lm", card=smi, arch=LM_ARCH, n_params=n_params, init_s=init_s,
+         slots=LM_SLOTS, max_len=LM_MAX_LEN, requests=LM_REQUESTS,
+         max_new=LM_MAX_NEW, prompt_tokens=pre_tok,
+         prompt_len_min=int(lens.min()), prompt_len_max=int(lens.max()),
+         ticks=st.ticks, prefills=n_pre, decode_steps=n_dec,
+         wall_s=wall_s, prefill_s=sum(step_s["prefill"]),
+         decode_s=sum(step_s["decode"]),
+         prefill_tokens_per_s=pre_tok / sum(step_s["prefill"]),
+         decode_tokens_per_s=n_dec / sum(step_s["decode"]),
+         prefill_ms_p50=float(np.percentile(step_s["prefill"], 50)) * 1e3,
+         decode_step_ms_p50=float(np.percentile(step_s["decode"], 50)) * 1e3,
+         tick_ms_p50=float(np.percentile(tick_s, 50)) * 1e3,
+         tick_ms_p99=float(np.percentile(tick_s, 99)) * 1e3,
+         tick_ms_max=max(tick_s) * 1e3, peak_memory_allocated_gb=peak_gb,
+         max_occupancy=max(st.slot_occupancy),
+         chunk_scan_launches=launches,
+         tokens_equal_isolated_decode=True,
+         prompt0_len=len(prompts[0]),
+         layers_kernel_vs_plain=[{"o_max_abs_err": eo, "o_scale": sc,
+                                  "state_max_abs_err": es}
+                                 for eo, sc, es in shadow],
+         logits_depth=LOGIT_DEPTH, logits_kernel_vs_plain_ratio=logit_ratio,
+         logits24_kernel_vs_plain_ratio=ratio(lk, lp),
+         logits24_floor_ratio=ratio(ln, lp),
+         logits24_argmax_agreement=argmax_agree,
+         logits24_floor_argmax_agreement=float(
+             (ln.argmax(-1) == lp.argmax(-1)).float().mean()))
+
+    # -- 9. the kernel against its plain version ----------------------------
+    def inputs(bh, t, dk, dv, seed):
+        g = torch.Generator(device=card).manual_seed(seed)
+        n = lambda *sh: torch.randn(*sh, generator=g, device=card)
+        w = 0.5 + 0.499 * torch.rand(bh, t, dk, generator=g, device=card)
+        return n(bh, t, dk), n(bh, t, dk), n(bh, t, dv), w, n(bh, dk), n(
+            bh, dk, dv)
+
+    # the model's own inputs: layer 0's call in the prefill above
+    (mq, mk, mv, mw), mkw = captured[0][0][:4], captured[0][1]
+    cases = []
+    for bonus in (False, True):
+        cases += [
+            (f"B*H=32,T=1024,C=128,uniform,bonus={bonus}",
+             inputs(32, 1024, 64, 64, 1), 128, bonus, True),
+            (f"B*H=32,T=1,C=1,uniform,bonus={bonus}",
+             inputs(32, 1, 64, 64, 2), 128, bonus, True),
+            (f"B*H=32,T=300(padded),C=128,uniform,bonus={bonus}",
+             inputs(32, 300, 64, 64, 3), 128, bonus, True),
+            (f"B*H=8,T=64,dk=dv=16,C=16,uniform,bonus={bonus}",
+             inputs(8, 64, 16, 16, 4), 16, bonus, True),
+            (f"model layer 0,B*H=32,T={mq.shape[1]},C=128,bonus={bonus}",
+             (mq, mk, mv, mw, mkw["bonus"], mkw["state"] if mkw["state"]
+              is not None else torch.zeros(32, 64, 64, device=card)),
+             128, bonus, False)]
+    comparisons, err_o, err_s = {}, 0.0, 0.0
+    for name, (q, k, v, w, u, s0), chunk, bonus, gate_naive in cases:
+        u = u if bonus else None
+        with torch.no_grad():
+            got = ops.chunk_scan(q, k, v, w, u, s0, chunk=chunk)
+            want = ops.chunk_scan(q, k, v, w, u, s0, chunk=chunk,
+                                  impl="ref")
+            naive = ref.chunk_scan_ref(q, k, v, w, u, s0)
+        torch.cuda.synchronize()
+        scale = max(float(want[0].abs().max()), 1.0)
+        eo = float((got[0] - want[0]).abs().max())
+        es = float((got[1] - want[1]).abs().max())
+        no = float((got[0] - naive[0]).abs().max())
+        ns = float((got[1] - naive[1]).abs().max())
+        nscale = max(float(naive[0].abs().max()), 1.0)
+        comparisons[name] = {
+            "o_max_abs_err": eo, "o_scale": scale, "state_max_abs_err": es,
+            "naive_o_max_abs": no, "naive_o_scale": nscale,
+            "naive_state_max_abs": ns,
+            "decay_min": float(w.min()), "decay_max": float(w.max())}
+        check(eo <= SCAN_O_TOL * scale and es <= SCAN_S_TOL,
+              f"chunk_scan kernel vs plain, {name}: o {eo} (scale {scale}),"
+              f" state {es}")
+        if gate_naive:
+            check(no <= SCAN_O_TOL * nscale and ns <= SCAN_S_TOL,
+                  f"chunk_scan kernel vs naive recurrence, {name}: o {no}, "
+                  f"state {ns}")
+        err_o, err_s = max(err_o, eo), max(err_s, es)
+    emit("lm_check", tolerance=f"o <= {SCAN_O_TOL} * max(|o|, 1), state <= "
+         f"{SCAN_S_TOL}; naive gated at decays >= 0.5 only",
+         comparisons=comparisons)
+
+    # -- 10. times -------------------------------------------------------------
+    # a decode tick of 8 live slots, and one prefill of 1,024 tokens, traced
+    eng2 = ContinuousBatcher(cfg, model, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    for i in range(LM_SLOTS):
+        eng2.submit(Request(rid=i, prompt=prompts[i][:64], max_new=64))
+    eng2.tick()                                   # admits all 8
+    decode_tick = profile_run(eng2.tick)          # one warm, one traced
+    ptoks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 1024)).astype(
+        np.int32)).to(card)
+    prefill_trace = profile_run(lambda: prefill(
+        model, {"tokens": ptoks}, zoo.init_cache(cfg, 1, LM_MAX_LEN, card)))
+    # the kernel and its plain version: CUDA events around one call (what
+    # a caller waits), and the kernel's device time from graph replay
+    rows = {}
+    for label, (bh, t, n) in (("prefill", (32, 1024, 10)),
+                              ("decode", (32, 1, 200)),
+                              ("large", (256, 4096, 2))):
+        q, k, v, w, u, s0 = inputs(bh, t, 64, 64, 5)
+        kern = lambda: cs.chunk_scan_kernel(q, k, v, w, u, s0, chunk=128,
+                                            use_bonus=True)
+        plain = lambda: ref.chunk_scan_chunked_ref(q, k, v, w, u, s0,
+                                                   chunk=min(128, t))
+        reps = 50 if t == 1 else 10
+        rows[label] = {**chunk_scan_bound(bh, t, 64, 64, 128, True),
+                       "ms": cuda_ms(kern, reps=reps, warmup=3),
+                       "device_ms": graph_ms(kern, n),
+                       "plain_ms": cuda_ms(plain, reps=reps, warmup=2)}
+    emit("lm_times", card=smi, chunk_scan=rows,
+         decode_tick=dict(live_slots=LM_SLOTS, **decode_tick),
+         prefill_1024=prefill_trace)
+
+    p = rows["prefill"]
+    return {"name": "chunk_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/chunk_scan.cu",
+            "replaces": "src/repro/kernels/chunk_scan.py:92",
+            "launches": launches,
+            "launches_path": "lm: 24 per prefill and per decode step",
+            "max_abs_err": max(err_o, err_s), "ms": p["ms"],
+            "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
+            "bound_by": p["bound_by"], "library_ms": None,
+            "shape": p["shape"],
+            "device_ms": p["device_ms"],
+            "decode_ms": rows["decode"]["ms"],
+            "decode_device_ms": rows["decode"]["device_ms"],
+            "decode_bound_ms": rows["decode"]["bound_ms"],
+            "tolerance": f"o {SCAN_O_TOL} x max(|o|,1), state {SCAN_S_TOL}"}
 
 
 def main() -> int:
@@ -591,14 +932,14 @@ def main() -> int:
     pkt, op, fld, prd, init, acc, seen = fold_args(C_serve)
     # a call of either wrapper costs more host time than its kernel costs
     # device time, so CUDA events around one call (call_ms) measure the
-    # launch; the kernel's own time (ms) comes from the profiler
+    # launch; the kernel's own time (ms) comes from CUDA-graph replay
     fold3 = lambda: fw.feature_update_kernel(pkt, op, fld, prd, acc, seen)
     fold4 = lambda: fw.feature_update_finalize_kernel(pkt, op, fld, prd,
                                                       init, acc, seen)
     call3 = cuda_ms(fold3, reps=50, warmup=5)
     call4 = cuda_ms(fold4, reps=50, warmup=5)
-    ms3 = kernel_device_ms(fold3, "feature_update_kernel")
-    ms4 = kernel_device_ms(fold4, "feature_update_kernel")
+    ms3 = graph_ms(fold3, 200)
+    ms4 = graph_ms(fold4, 200)
     plain3 = cuda_ms(lambda: ref.feature_update_ref(pkt, op, fld, prd, acc,
                                                     seen), reps=50, warmup=5)
     plain4 = cuda_ms(lambda: ref.feature_update_finalize_ref(
@@ -628,7 +969,8 @@ def main() -> int:
              serve_launches["feature_update_finalize"] / len(ticks)),
          steady_state_tick=dict(index=profiled,
                                 packets=prof_pkts, **tick_prof))
-    emit("queued_bounds", chunk_scan=chunk_scan_bound())
+
+    lm = lm_phases(card, smi)
 
     # -- 8. summary -----------------------------------------------------------
     print(json.dumps({"kernels": [
@@ -665,6 +1007,7 @@ def main() -> int:
          "plain_ms": plain4,
          "bound_ms": bound4, "bound_by": by4, "library_ms": None,
          "shape": f"C={C_serve},k={k}", "equal": True},
+        lm,
     ]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,38 @@
+"""Config registry: ``--arch <id>`` -> ArchConfig (port of
+``repro.configs``).
+
+The port serves ``rwkv6-1.6b`` only; the JAX package's other
+architectures are named here so that asking for one says which ROADMAP
+item ports it.
+"""
+from __future__ import annotations
+
+from repro_torch.configs import rwkv6_1_6b
+from repro_torch.configs.base import ArchConfig, SHAPES, ShapeCfg, shape_supported
+
+ARCHS: dict[str, ArchConfig] = {rwkv6_1_6b.CONFIG.arch_id: rwkv6_1_6b.CONFIG}
+
+#: the JAX package's other architectures, not ported yet
+NOT_PORTED: dict[str, str] = {
+    "tinyllama-1.1b": "ROADMAP A.11 (transformer family)",
+    "minitron-8b": "ROADMAP A.11 (transformer family)",
+    "granite-3-2b": "ROADMAP A.11 (transformer family)",
+    "stablelm-3b": "ROADMAP A.11 (transformer family)",
+    "paligemma-3b": "ROADMAP A.11 (transformer family, VLM prefix)",
+    "qwen2-moe-a2.7b": "ROADMAP A.11 (MoE family)",
+    "deepseek-v2-236b": "ROADMAP A.11 (MoE and MLA families)",
+    "whisper-medium": "ROADMAP A.11 (Whisper family)",
+    "zamba2-2.7b": "ROADMAP A.11 (Mamba2/Zamba2 family)",
+}
+
+__all__ = ["ARCHS", "ArchConfig", "NOT_PORTED", "SHAPES", "ShapeCfg",
+           "get_arch", "shape_supported"]
+
+
+def get_arch(arch_id: str) -> ArchConfig:
+    if arch_id in NOT_PORTED:
+        raise KeyError(f"arch {arch_id!r} is not ported yet: "
+                       f"{NOT_PORTED[arch_id]}")
+    if arch_id not in ARCHS:
+        raise KeyError(f"unknown arch {arch_id!r}; options: {sorted(ARCHS)}")
+    return ARCHS[arch_id]

@@ -16,6 +16,12 @@ port's :class:`~repro_torch.kernels.tick_step.TickState`
 (:func:`tick_state_from_arrays`), so both packages can step the very
 same state.
 
+An RWKV6 parameter tree (``repro.models.rwkv.param_defs`` materialised:
+nested dicts of numpy arrays, stacked over the layers) becomes the
+port's model (:func:`rwkv_params_from_arrays`), and a JAX decode cache
+becomes the port's cache (:func:`rwkv_cache_from_arrays`), so the port
+can decode from a state that JAX prefilled.
+
 This module takes plain numpy, so it imports nothing of the JAX package.
 """
 from __future__ import annotations
@@ -23,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.inference import EngineTables
 from repro_torch.device import resolve_device
 from repro_torch.kernels.ops import DEVICE_TABLE_DTYPES, DeviceTables
@@ -105,3 +112,81 @@ def tick_state_from_arrays(
     dev = resolve_device(device)
     return TickState(**{name: torch.tensor(host[name], device=dev)
                         for name in fields})
+
+
+def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A numpy array on ``dev``; a bfloat16 array (``ml_dtypes``, as JAX
+    hands it over) keeps its bits through an int16 view."""
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
+            torch.bfloat16).to(dev)
+    return torch.tensor(a, device=dev)
+
+
+def rwkv_params_from_arrays(
+    tree: dict,
+    *,
+    cfg: ArchConfig,
+    device: "str | torch.device | None" = None,
+):
+    """The port's RWKV6 model over a JAX parameter tree.
+
+    ``tree`` holds exactly the leaves of ``param_defs(cfg)`` (``embed``,
+    ``layers.{ln1,ln2,tm.*,cm.*}`` stacked over layers, ``ln_f``,
+    ``head``), each a float32 array of the declared shape; nothing is
+    cast.
+    """
+    from repro_torch.distributed.pspec import tree_items
+    from repro_torch.models import rwkv
+    dev = resolve_device(device)
+    defs = dict(tree_items(rwkv.param_defs(cfg)))
+    host = dict(tree_items(tree))
+    if set(defs) != set(host):
+        raise ValueError(f"need exactly the RWKV6 parameters; missing "
+                         f"{sorted(set(defs) - set(host))}, unexpected "
+                         f"{sorted(set(host) - set(defs))}")
+    for name, d in defs.items():
+        a = np.asarray(host[name])
+        if a.shape != d.shape or a.dtype != np.float32:
+            raise ValueError(f"{name}: need float32 {d.shape}, got "
+                             f"{a.dtype} {a.shape}")
+
+    def up(node):
+        if isinstance(node, dict):
+            return {k: up(v) for k, v in node.items()}
+        return _tensor(np.asarray(node), dev)
+
+    return rwkv.RWKV6(cfg, up(tree))
+
+
+def rwkv_cache_from_arrays(
+    tree: dict,
+    *,
+    cfg: ArchConfig,
+    batch: int,
+    device: "str | torch.device | None" = None,
+) -> dict:
+    """The port's RWKV6 decode cache from a JAX one: ``tm.shift`` and
+    ``cm.shift`` (L, batch, D) bfloat16, ``tm.S`` (L, batch * H, hd, hd)
+    float32; nothing is cast."""
+    from repro_torch.models.layers import COMPUTE_DTYPE
+    dev = resolve_device(device)
+    H, hd = cfg.d_model // cfg.ssm.head_dim, cfg.ssm.head_dim
+    Ln, D = cfg.n_layers, cfg.d_model
+    want = {("tm", "shift"): (Ln, batch, D), ("tm", "S"): (Ln, batch * H, hd,
+                                                           hd),
+            ("cm", "shift"): (Ln, batch, D)}
+    if set(tree) != {"tm", "cm"} or set(tree["tm"]) != {"shift", "S"} \
+            or set(tree["cm"]) != {"shift"}:
+        raise ValueError("need exactly tm.shift, tm.S and cm.shift")
+    out: dict = {"tm": {}, "cm": {}}
+    for (grp, name), shape in want.items():
+        a = np.asarray(tree[grp][name])
+        if a.shape != shape:
+            raise ValueError(f"{grp}.{name}: need {shape}, got {a.shape}")
+        want_dt = torch.float32 if name == "S" else COMPUTE_DTYPE
+        t = _tensor(a, dev)
+        if t.dtype != want_dt:
+            raise ValueError(f"{grp}.{name}: need {want_dt}, got {a.dtype}")
+        out[grp][name] = t
+    return out

@@ -23,9 +23,11 @@ import shutil
 import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("feature_window.cu", "dt_traverse.cu", "feature_update.cu")
+SOURCES = ("feature_window.cu", "dt_traverse.cu", "feature_update.cu",
+           "chunk_scan.cu")
 # -fmad=false: no multiply-add contraction anywhere (docs/PARITY.md §1);
-# the kernels also spell their float ops with __fmul_rn/__fadd_rn
+# the SpliDT kernels also spell their float ops with __fmul_rn/__fadd_rn
+# (chunk_scan, held to a tolerance, writes its fmaf explicitly)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -20,6 +20,7 @@ import torch
 from repro_torch.core.range_tables import RangeExecTables
 from repro_torch.core.tables import PackedTables
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.chunk_scan import chunk_scan_kernel
 from repro_torch.kernels.dispatch import dispatch_dt_traverse
 from repro_torch.kernels.dt_traverse import BLOCK_B
 from repro_torch.kernels.feature_window import (
@@ -198,3 +199,55 @@ def dt_traverse(
     s = sid.to(torch.int64)
     return _ref.dt_traverse_ref(regs, thr[s], lo[s], hi[s], act[s],
                                 val[s] > 0)
+
+
+# ---------------------------------------------------------------------------
+# chunk_scan
+# ---------------------------------------------------------------------------
+def chunk_scan(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    decay: torch.Tensor,
+    bonus: torch.Tensor | None = None,
+    state: torch.Tensor | None = None,
+    *,
+    chunk: int = 128,
+    impl: str | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Gated linear recurrence over (B, T, d) inputs; see
+    ``kernels/chunk_scan.py``.  Returns ``(o (B, T, dv), state)``.
+
+    ``impl=None`` launches the kernel for a CUDA tensor and runs the plain
+    chunked version (``ref.chunk_scan_chunked_ref``) for a CPU tensor;
+    ``"ref"`` runs the plain version on either device (the checks on the
+    card compare the two).  As in the JAX package: ``state=None``
+    is f32 zeros, the GLA form runs unless a bonus is given, a T of at
+    most ``chunk`` runs as one chunk of C = T, and a longer T that is no
+    multiple of ``chunk`` is padded with zero q/k/v and decay 1.0 steps
+    (which leave the state as it is), its ``o`` cut back to T.
+    """
+    if impl not in (None, "ref"):
+        raise ValueError(f"unknown impl {impl!r}; use None or 'ref'")
+    B, T, dk = q.shape
+    dv = v.shape[-1]
+    if state is None:
+        state = torch.zeros((B, dk, dv), dtype=torch.float32,
+                            device=q.device)
+    pad = (-T) % chunk if T > chunk else 0
+    if pad:
+        zq = lambda x: torch.nn.functional.pad(x, (0, 0, 0, pad))
+        q, k, v = zq(q), zq(k), zq(v)
+        decay = torch.nn.functional.pad(decay, (0, 0, 0, pad), value=1.0)
+    if impl is None and q.device.type == "cuda":
+        f32 = lambda x: x.to(torch.float32).contiguous()
+        b = (f32(bonus) if bonus is not None
+             else torch.zeros((B, dk), dtype=torch.float32, device=q.device))
+        o, s = chunk_scan_kernel(f32(q), f32(k), f32(v), f32(decay), b,
+                                 f32(state), chunk=chunk,
+                                 use_bonus=bonus is not None)
+        o = o.to(v.dtype)
+    else:
+        o, s = _ref.chunk_scan_chunked_ref(q, k, v, decay, bonus, state,
+                                           chunk=min(chunk, q.shape[1]))
+    return (o[:, :T] if pad else o), s

@@ -1,5 +1,5 @@
-"""Plain PyTorch versions of the SpliDT kernels (port of the SpliDT half
-of ``repro.kernels.ref``).
+"""Plain PyTorch versions of the kernels (port of ``repro.kernels.ref``):
+the SpliDT kernels and the LM prototype's ``chunk_scan``.
 
 These are the correctness references: simple implementations with no
 tiling.  The CPU path of the engine runs them, the tests hold them
@@ -210,3 +210,101 @@ def dt_traverse_ref(
     safe = first.clamp(max=L - 1)
     action = torch.gather(leaf_action, 1, safe[:, None])[:, 0]
     return torch.where(first < L, action, -1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# chunk_scan: gated linear recurrence (RWKV6 / Mamba2-SSD family)
+# ---------------------------------------------------------------------------
+# Held to tolerances (tests/test_kernels.py), not to bits: the LM prototype
+# is outside docs/PARITY.md.
+def chunk_scan_ref(
+    q: torch.Tensor,      # (B, T, dk)
+    k: torch.Tensor,      # (B, T, dk)
+    v: torch.Tensor,      # (B, T, dv)
+    decay: torch.Tensor,  # (B, T, dk) in (0, 1]; per-channel data-dependent
+    bonus: torch.Tensor | None = None,   # (B, dk) RWKV6 "u" or None
+    state: torch.Tensor | None = None,   # (B, dk, dv) initial state
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Naive per-token recurrence (the oracle).
+
+        S_t = diag(decay_t) S_{t-1} + k_t^T v_t
+        o_t = q_t (S_{t-1} + diag(bonus) k_t^T v_t)   [RWKV6 bonus form]
+    With bonus=None: o_t = q_t S_t (GLA/SSD form).
+
+    Returns (o (B, T, dv), final_state (B, dk, dv)).
+    """
+    B, T, dk = q.shape
+    dv = v.shape[-1]
+    S = (torch.zeros((B, dk, dv), dtype=torch.float32, device=q.device)
+         if state is None else state.float())
+    outs = []
+    for t in range(T):
+        kv = k[:, t, :, None] * v[:, t, None, :]            # (B, dk, dv)
+        if bonus is not None:
+            o = torch.einsum("bk,bkv->bv", q[:, t],
+                             S + bonus[:, :, None] * kv)
+            S = decay[:, t, :, None] * S + kv
+        else:
+            S = decay[:, t, :, None] * S + kv
+            o = torch.einsum("bk,bkv->bv", q[:, t], S)
+        outs.append(o)
+    return torch.stack(outs, dim=1).to(v.dtype), S
+
+
+def chunk_scan_chunked_ref(q, k, v, decay, bonus=None, state=None,
+                           chunk: int = 64
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Chunked (parallel-within-chunk) formulation: the plain version of
+    the ``chunk_scan`` kernel (``csrc/chunk_scan.cu``).
+
+    Step for step the JAX package's ``chunk_scan_chunked_ref``: the
+    ``1e-38`` log floor, the inclusive cumsum, the mid-chunk reference
+    ``cum[:, C//2]``, the +-45 clip of the centred exponents (kept as it
+    is, though it changes the numbers for decays below ~exp(-90/C)),
+    ``cum_q = cum - logw`` and a strictly causal mask in the bonus form,
+    and the uncentred ``exp(cum_q)`` for the inter-chunk read.
+    """
+    B, T, dk = q.shape
+    dv = v.shape[-1]
+    if T % chunk != 0:
+        raise ValueError(f"T={T} is no multiple of chunk={chunk}: pad T "
+                         "to a chunk multiple")
+    nC = T // chunk
+    S = (torch.zeros((B, dk, dv), dtype=torch.float32, device=q.device)
+         if state is None else state.float())
+    qc = q.reshape(B, nC, chunk, dk).float()
+    kc = k.reshape(B, nC, chunk, dk).float()
+    vc = v.reshape(B, nC, chunk, dv).float()
+    wc = decay.reshape(B, nC, chunk, dk).float()
+    u = None if bonus is None else bonus.float()
+
+    logw = torch.log(torch.clamp(wc, min=1e-38))
+    cum = torch.cumsum(logw, dim=2)              # inclusive
+    total = cum[:, :, -1, :]                     # (B, nC, dk)
+    ones = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device)
+    # GLA: kv_s reaches o_t with decay prod_{r=s+1..t} w_r (incl. w_t);
+    # bonus: o_t reads S_{t-1}, so the product excludes w_t
+    mask = torch.tril(ones) if u is None else torch.tril(ones, -1)
+    outs = []
+    for c in range(nC):
+        qi, ki, vi = qc[:, c], kc[:, c], vc[:, c]
+        cumi, totali = cum[:, c], total[:, c]
+        cum_q = cumi if u is None else cumi - logw[:, c]
+        mref = cumi[:, chunk // 2, :][:, None, :]
+        q_in = qi * torch.exp(torch.clamp(cum_q - mref, -45.0, 45.0))
+        k_in = ki * torch.exp(torch.clamp(mref - cumi, -45.0, 45.0))
+        d_out = torch.exp(totali[:, None, :] - cumi)
+        att = torch.einsum("btk,bsk->bts", q_in, k_in)
+        att = torch.where(mask[None], att, 0.0)
+        o_intra = torch.einsum("bts,bsv->btv", att, vi)
+        if u is not None:
+            diag = torch.einsum("btk,bk,btk->bt", qi, u, ki)
+            o_intra = o_intra + diag[:, :, None] * vi
+        # the carried state is read with the TRUE decay from chunk start
+        # (uncentred; underflow to 0 is the correct limit)
+        o_inter = torch.einsum("btk,bkv->btv", qi * torch.exp(cum_q), S)
+        S = torch.exp(totali)[:, :, None] * S + torch.einsum(
+            "btk,btv->bkv", ki * d_out, vi)
+        outs.append(o_intra + o_inter)
+    o = torch.stack(outs, dim=1).reshape(B, T, dv)
+    return o.to(v.dtype), S

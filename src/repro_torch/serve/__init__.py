@@ -1,8 +1,10 @@
 """Serving surface (port of ``repro.serve``): live per-packet inference
-behind a resident flow table.  Batch streaming (``run_streaming``,
+behind a resident flow table, and LM continuous batching
+(``ContinuousBatcher``, RWKV6).  Batch streaming (``run_streaming``,
 ``stream_batches``) is not ported yet (ROADMAP A.7).
 """
 from repro_torch.core.inference import Engine, EngineOptions, EngineResult
+from repro_torch.serve.batching import ContinuousBatcher, EngineStats, Request
 from repro_torch.serve.flowtable import (
     FlowTable,
     FlowTableServer,
@@ -12,11 +14,14 @@ from repro_torch.serve.flowtable import (
 )
 
 __all__ = [
+    "ContinuousBatcher",
     "Engine",
     "EngineOptions",
     "EngineResult",
+    "EngineStats",
     "FlowTable",
     "FlowTableServer",
+    "Request",
     "ServerStats",
     "StreamVerdict",
     "StreamVerdicts",

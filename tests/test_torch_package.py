@@ -69,16 +69,19 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "import sys, repro_torch, repro_torch.convert, "
         "repro_torch.core.inference, repro_torch.flows.windows, "
         "repro_torch.kernels.ops, repro_torch.kernels.tick_step, "
-        "repro_torch.obs, repro_torch.serve\n"
+        "repro_torch.kernels.chunk_scan, repro_torch.models.rwkv, "
+        "repro_torch.models.model_zoo, repro_torch.serve.batching, "
+        "repro_torch.launch.serve, repro_torch.obs, repro_torch.serve\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')))\n")
     assert out.strip() == "[]"
 
 
 def test_import_and_cpu_path_never_call_nvcc():
-    """Importing every module and running the CPU engine and a CPU
-    flow-table server (both tick engines) starts no process (no
-    ``nvcc``) and loads no kernel library."""
+    """Importing every module and running the CPU engine, a CPU
+    flow-table server (both tick engines) and the reduced RWKV6 batcher
+    on the CPU starts no process (no ``nvcc``) and loads no kernel
+    library."""
     out = _run(
         "import subprocess\n"
         "def boom(*a, **k): raise AssertionError('process started')\n"
@@ -105,8 +108,15 @@ def test_import_and_cpu_path_never_call_nvcc():
         "    n = sum(srv.ingest(b).n_flows for b in "
         "make_packet_stream(ds, seed=2).ticks(500))\n"
         "    assert n + srv.flush().n_flows == 120\n"
+        "from repro_torch.kernels import chunk_scan\n"
+        "from repro_torch.launch import serve\n"
+        "from repro_torch.models import rwkv\n"
+        "from repro_torch.serve import batching\n"
+        "st = serve.main(['--arch', 'rwkv6-1.6b', '--slots', '2', "
+        "'--requests', '3', '--max-new', '3', '--device', 'cpu'])\n"
+        "assert st.completed == 3 and chunk_scan.launches == 0\n"
         "print(len(_build._LIBS))\n")
-    assert out.strip() == "0"
+    assert out.strip().splitlines()[-1] == "0"
 
 
 def test_build_dir_hashes_shared_headers(tmp_path, monkeypatch):
@@ -446,3 +456,99 @@ def test_cuda_server_equals_fused_server_on_card(card, tick_engine):
     assert cstats["spilled"] > 0 and cstats["evicted"] > 0
     assert flaunch == (0, 0)
     assert claunch[0 if tick_engine == "legacy" else 1] > 0
+
+
+# ---------------------------------------------------------------------------
+# the LM slice: chunk_scan and RWKV6
+# ---------------------------------------------------------------------------
+def _scan_inputs(device, BH: int, T: int, dk: int, dv: int, decays: str,
+                 seed: int = 0):
+    """q, k, v, decay, bonus, state made on ``device`` from a seed.
+    ``decays="uniform"``: U[0.5, 0.999] (where the chunked form is exact);
+    ``"model"``: RWKV6's init decays, exp(-exp(N(0, 0.05))) ~ 0.37."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    n = lambda *s: torch.randn(*s, generator=g, device=device)
+    u = lambda *s: torch.rand(*s, generator=g, device=device)
+    w = (0.5 + 0.499 * u(BH, T, dk) if decays == "uniform"
+         else torch.exp(-torch.exp(0.05 * n(BH, T, dk))))
+    return n(BH, T, dk), n(BH, T, dk), n(BH, T, dv), w, n(BH, dk), n(BH, dk,
+                                                                      dv)
+
+
+#: (B*H, T, chunk, dk, dv): the lm_check shapes of chip_smoke.py --
+#: rwkv6-1.6b's prefill, decode, a padded prompt, the reduced model
+LM_SCAN_SHAPES = [(32, 1024, 128, 64, 64), (32, 1, 128, 64, 64),
+                  (32, 300, 128, 64, 64), (8, 64, 16, 16, 16)]
+
+
+def test_chunk_scan_wrapper_refuses_cpu_tensors():
+    from repro_torch.kernels import chunk_scan as cs
+    q, k, v, w, b, s = _scan_inputs("cpu", 2, 8, 4, 4, "uniform")
+    before = cs.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        cs.chunk_scan_kernel(q, k, v, w, b, s, chunk=4)
+    from repro_torch.kernels import ops
+    with pytest.raises(ValueError, match="unknown impl"):
+        ops.chunk_scan(q, k, v, w, b, s, chunk=4, impl="pallas")
+    assert cs.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decays", ["uniform", "model"])
+@pytest.mark.parametrize("bonus", [False, True])
+@pytest.mark.parametrize("BH,T,chunk,dk,dv", LM_SCAN_SHAPES)
+def test_chunk_scan_kernel_matches_plain_on_card(card, BH, T, chunk, dk, dv,
+                                                 bonus, decays):
+    """The kernel against its plain version through ``ops.chunk_scan``
+    (padding included), at the tolerances of tests/test_kernels.py: o
+    within 2e-4 * max(|o|, 1), the state within 3e-4."""
+    from repro_torch.kernels import chunk_scan as cs
+    from repro_torch.kernels import ops
+    q, k, v, w, u, s0 = _scan_inputs(card, BH, T, dk, dv, decays, seed=T)
+    u = u if bonus else None
+    before = cs.launches
+    o, s = ops.chunk_scan(q, k, v, w, u, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert cs.launches == before + 1
+    o_ref, s_ref = ops.chunk_scan(q, k, v, w, u, s0, chunk=chunk, impl="ref")
+    scale = max(float(o_ref.abs().max()), 1.0)
+    assert float((o - o_ref).abs().max()) <= 2e-4 * scale
+    assert float((s - s_ref).abs().max()) <= 3e-4
+    # deterministic: a second launch gives the same bits
+    o2, s2 = ops.chunk_scan(q, k, v, w, u, s0, chunk=chunk)
+    assert torch.equal(o, o2) and torch.equal(s, s2)
+
+
+@pytest.mark.gpu
+def test_rwkv_kernel_route_matches_plain_route_on_card(card):
+    """Reduced RWKV6 on the card: prefill logits, the cache and four
+    teacher-forced decode steps on the kernel route against the plain
+    route, within the bound of tests/test_models.py (0.05 * max |logit|)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import pspec as tp
+    from repro_torch.kernels import chunk_scan as cs
+    from repro_torch.models import rwkv
+    cfg = get_arch("rwkv6-1.6b").reduced()
+    gen = torch.Generator(device=card).manual_seed(0)
+    model = rwkv.RWKV6(cfg, tp.init_params(rwkv.param_defs(cfg), gen, card))
+    toks = torch.randint(0, cfg.vocab, (2, 41), generator=gen, device=card,
+                         dtype=torch.int32)
+    out = {}
+    with torch.no_grad():
+        for impl in (None, "ref"):
+            before = cs.launches
+            cache = rwkv.init_cache(cfg, 2, 64, card)
+            lg, cache, _ = model({"tokens": toks[:, :37]}, mode="prefill",
+                                 cache=cache, impl=impl)
+            lgs = [lg[:, -1].float()]
+            for t in range(37, 41):
+                lg, cache, _ = model({"tokens": toks[:, t:t + 1]},
+                                     mode="decode", cache=cache, impl=impl)
+                lgs.append(lg[:, -1].float())
+            launched = cs.launches - before
+            out[impl] = (torch.stack(lgs), cache, launched)
+    (a, ca, na), (b, cb, nb) = out[None], out["ref"]
+    assert na == 5 * cfg.n_layers and nb == 0
+    assert float((a - b).abs().max()) <= 0.05 * float(b.abs().max())
+    assert float((ca["tm"]["S"] - cb["tm"]["S"]).abs().max()) <= 3e-4 * max(
+        1.0, float(cb["tm"]["S"].abs().max()))
