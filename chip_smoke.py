@@ -9,7 +9,8 @@ exits nonzero; nothing is caught and passed over):
 1. device  -- ``nvidia-smi`` name and power limit, and the time to build
    every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc`` (one
    process per source, all at once);
-2. main    -- ``make_dataset("d2", 6000)`` -> ``window_features`` (kernel A)
+2. main    -- ``make_dataset("d2", 6000)`` -> ``window_features`` (kernel A,
+   one launch per window and batch of flows)
    -> ``train_partitioned_dt([3, 3, 3], k=4)`` -> ``window_packets`` of the
    test split tiled to 2^20 flows -> ``Engine.from_model(pdt).run`` on the
    card (kernels A and B).  Verdicts must equal ``np.tile`` of the numpy
@@ -44,7 +45,9 @@ exits nonzero; nothing is caught and passed over):
    ``ContinuousBatcher(slots=8, max_len=2048)``: 16 requests, prompts of
    300-1100 tokens drawn from the seed, 16 greedy tokens each,
    ``run_until_drained()``.  All complete, occupancy never exceeds 8, the
-   ``chunk_scan`` kernel launched 24 x (prefills + decode steps) times,
+   ``chunk_scan`` kernel called 24 x (prefills + decode steps) times as
+   24 x (3 x prefills + decode steps) device kernels (the library counts
+   each launch),
    each request's tokens equal an isolated batch-1 prefill and decode
    (``==``); one prompt's prefill on the plain route with the kernel run
    beside every layer on that layer's inputs, each within the kernel
@@ -55,14 +58,20 @@ exits nonzero; nothing is caught and passed over):
    peak device memory;
 9. lm_check -- the ``chunk_scan`` kernel against its plain version in both
    forms at B*H = 32, T = 1024, C = 128; T = 1; T = 300 (padded); dk = dv =
-   16 at C = 16; decays U[0.5, 0.999] and the model's own (layer 0 of a
-   prefill): o within 2e-4 * max(|o|, 1), the state within 3e-4; and the
-   naive recurrence at decays >= 0.5 (at the model's decays its distance
-   is printed, not gated: the reference's +-45 clip);
+   16 at C = 16; T = 4096 (32 chunks); T = 128 (one chunk); the kernel's
+   padded and tiled paths (C = 37 and 100; dk = 40 and 44 with dv = 36 and
+   30; dv = 96; dk = dv = 128); decays U[0.5, 0.999] and the model's own
+   (layer 0 of a prefill): o within 2e-4 * max(|o|, 1), the state within
+   3e-4; and the naive recurrence at decays >= 0.5 (at the model's decays
+   its distance is printed, not gated: the reference's +-45 clip);
 10. lm_times -- one traced decode tick and one traced prefill; CUDA-event
    medians of the kernel and its plain version at the prefill, decode and
    B*H = 256, T = 4096 shapes, and the kernel's device time from CUDA-graph
-   replay, beside their bounds;
+   replay, beside both bounds (the route's and the f32 one); its device
+   kernels per call, counted twice (by the library at each launch and as
+   kernel nodes of a captured graph); its registers, spills and shared
+   memory (nvcc's ``-Xptxas -v`` log, the launch's shared memory and CTAs
+   per SM);
 11. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -96,6 +105,7 @@ CHECK_TIMEOUT = 0.05      # stream seconds; evicts some idle flows (a
 CHECK_TICK = 4096
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+TF32_OPS_PER_S = 494.7e12  # H100 SXM TF32 tensor cores, dense
 LM_ARCH = "rwkv6-1.6b"
 LM_SLOTS, LM_MAX_LEN = 8, 2048
 LM_REQUESTS, LM_MAX_NEW = 16, 16
@@ -104,6 +114,9 @@ LM_SEED = 13
 LOGIT_TOL = 0.05           # x max |logit|: the bound of tests/test_models.py
 LOGIT_DEPTH = 2            # layers of the logits gate (the reduced depth)
 SCAN_O_TOL, SCAN_S_TOL = 2e-4, 3e-4   # tests/test_kernels.py
+SCAN_KERNELS = {"chunked": 3, "step": 1}  # chunk_scan's device kernels a
+#                           call by design: C >= 2 (prep, state pass,
+#                           output) and C == 1 (one step)
 T0 = time.perf_counter()
 
 
@@ -148,6 +161,35 @@ def graph_ms(fn, n: int, reps: int = 5) -> float:
             fn()
     torch.cuda.synchronize()
     return cuda_ms(g.replay, reps=reps, warmup=1) / n
+
+
+def graph_kernel_nodes(fn) -> int:
+    """Kernel nodes in a CUDA graph that captured one call of ``fn``, read
+    through the CUDA runtime: the device kernels the call launched."""
+    import ctypes
+
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        fn()
+    rt = ctypes.CDLL("libcudart.so.12")
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    check(rt.cudaGraphGetNodes(graph, None, ctypes.byref(n)) == 0,
+          "cudaGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(rt.cudaGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0,
+          "cudaGraphGetNodes")
+    kernels = 0
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        check(rt.cudaGraphNodeGetType(ctypes.c_void_p(node),
+                                      ctypes.byref(kind)) == 0,
+              "cudaGraphNodeGetType")
+        kernels += kind.value == 0        # cudaGraphNodeTypeKernel
+    del g
+    return kernels
 
 
 def host_s(fn, reps: int) -> float:
@@ -231,23 +273,64 @@ def chunk_scan_bound(bh: int, t: int, dk: int, dv: int, c: int,
                      use_bonus: bool) -> dict:
     """The least time of ``chunk_scan`` (the kernel that replaces
     ``chunk_scan_pallas``, src/repro/kernels/chunk_scan.py:92) at one
-    shape, f32.  Bytes: q, k, decay (B*H, T, dk), v and o (B*H, T, dv),
-    the bonus and the state in and out, each once.  Operations, 2 flops a
-    multiply-add, in f32 outside the tensor cores (no TF32), per chunk of
-    C = min(c, T): the two intra-chunk products over the causal triangle
-    only, C (C + 1) / 2 entries of dk + dv multiply-adds (the GLA form's
-    inclusive triangle; the bonus form's strictly causal one plus its
-    diagonal term (q u k) v, with C dk more multiplies for u), and the
-    two state products (C x dk x dv each).  The decay's logs, prefix sums
-    and exponents are left out."""
+    shape.  Bytes: q, k, decay (B*H, T, dk), v and o (B*H, T, dv), the
+    bonus and the state in and out, each once.  Operations, 2 flops a
+    multiply-add, per chunk of C = min(c, T): the two intra-chunk products
+    over the causal triangle only, C (C + 1) / 2 entries of dk + dv
+    multiply-adds (the GLA form's inclusive triangle; the bonus form's
+    strictly causal one plus its diagonal term (q u k) v, with C dk more
+    multiplies for u), and the two state products (C x dk x dv each).  The
+    decay's logs, prefix sums and exponents are left out.
+
+    ``bound_ms`` follows the kernel's route: for C >= 2 the products run
+    on the tensor cores in split TF32, three TF32 products per f32
+    product, so operations count 3x over 494.7 TFLOP/s; the one-step
+    kernel (C == 1) runs f32 on the CUDA cores at 67 TFLOP/s.
+    ``bound_f32_ms`` is the f32 CUDA-core figure for every C (the bound
+    of the f32 kernel measured before the tensor-core route)."""
     c = min(c, t)
     n_bytes = 4 * (bh * t * (3 * dk + 2 * dv) + bh * dk + 2 * bh * dk * dv)
     intra = c * (c + 1) * (dk + dv) + (c * dk if use_bonus else 0)
     n_ops = bh * (t // c) * (intra + 2 * 2 * c * dk * dv)
-    ms, by = bound_ms(n_bytes, n_ops)
+    f32_ms, f32_by = bound_ms(n_bytes, n_ops)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (n_ops / F32_OPS_PER_S if c == 1
+             else 3 * n_ops / TF32_OPS_PER_S) * 1e3
     return {"shape": f"B*H={bh},T={t},dk={dk},dv={dv},C={c},"
                      f"bonus={use_bonus}",
-            "bytes": n_bytes, "ops": n_ops, "bound_ms": ms, "bound_by": by}
+            "bytes": n_bytes, "ops": n_ops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_route": "f32 CUDA cores" if c == 1 else "split TF32",
+            "bound_f32_ms": f32_ms, "bound_f32_by": f32_by}
+
+
+def chunk_scan_resources(out_dir: pathlib.Path) -> dict:
+    """Registers, spills and static shared memory of each ``chunk_scan``
+    kernel, from nvcc's ``-Xptxas -v`` log beside its library."""
+    import re
+    res, name = {}, None
+    for ln in (out_dir / "chunk_scan.log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            mangled = m.group(1)
+            name = next(k for k in ("chunk_prep_kernel", "state_pass_kernel",
+                                    "chunk_out_kernel", "step_kernel")
+                        if k in mangled)
+            if "ILb1E" in mangled:
+                name += "<bonus>"
+            elif "ILb0E" in mangled:
+                name += "<gla>"
+            res[name] = {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and name:
+            res[name]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            res[name]["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", ln)
+            res[name]["static_smem_bytes"] = int(s.group(1)) if s else 0
+    return res
 
 
 def first_layers(model, n: int):
@@ -267,7 +350,7 @@ def first_layers(model, n: int):
     return cfg, rwkv.RWKV6(cfg, tree)
 
 
-def lm_phases(card, smi: str) -> dict:
+def lm_phases(card, smi: str, out_dir: pathlib.Path) -> dict:
     """Phases 8-10, the LM slice; returns its row of the kernels line."""
     import torch
     from repro_torch.configs import get_arch
@@ -330,14 +413,14 @@ def lm_phases(card, smi: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tick_s = []
-    cs.launches = 0
+    cs.launches = cs.kernel_launches = 0
     t0 = time.perf_counter()
     while eng.queue or any(eng.live):
         t = time.perf_counter()
         eng.tick()
         tick_s.append(time.perf_counter() - t)
     wall_s = time.perf_counter() - t0
-    launches = cs.launches
+    launches, kernel_launches = cs.launches, cs.kernel_launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     st = eng.stats
     check(st.completed == LM_REQUESTS and all(
@@ -352,6 +435,13 @@ def lm_phases(card, smi: str) -> dict:
     check(launches == cfg.n_layers * (n_pre + n_dec),
           f"chunk_scan launched {launches} times, want "
           f"{cfg.n_layers} x ({n_pre} + {n_dec})")
+    # the library counts each device kernel it launched: every prompt is
+    # longer than one step (the chunk-parallel kernels), every decode step
+    # one step (the one-step kernel)
+    want_k = cfg.n_layers * (SCAN_KERNELS["chunked"] * n_pre
+                             + SCAN_KERNELS["step"] * n_dec)
+    check(kernel_launches == want_k,
+          f"chunk_scan device kernels {kernel_launches}, want {want_k}")
 
     # slot isolation: each request alone, batch 1, kernel route
     for r in reqs:
@@ -438,6 +528,7 @@ def lm_phases(card, smi: str) -> dict:
          tick_ms_max=max(tick_s) * 1e3, peak_memory_allocated_gb=peak_gb,
          max_occupancy=max(st.slot_occupancy),
          chunk_scan_launches=launches,
+         chunk_scan_kernel_launches=kernel_launches,
          tokens_equal_isolated_decode=True,
          prompt0_len=len(prompts[0]),
          layers_kernel_vs_plain=[{"o_max_abs_err": eo, "o_scale": sc,
@@ -471,6 +562,27 @@ def lm_phases(card, smi: str) -> dict:
              inputs(32, 300, 64, 64, 3), 128, bonus, True),
             (f"B*H=8,T=64,dk=dv=16,C=16,uniform,bonus={bonus}",
              inputs(8, 64, 16, 16, 4), 16, bonus, True),
+            (f"B*H=32,T=4096,C=128,uniform,bonus={bonus}",
+             inputs(32, 4096, 64, 64, 6), 128, bonus, True),
+            (f"B*H=32,T=128,C=128,uniform,bonus={bonus}",
+             inputs(32, 128, 64, 64, 7), 128, bonus, True),
+            # the kernel's padded and tiled paths: C = 37 (rows padded to
+            # 48), C = 100 (a second row tile of 36), dk = 40 and 44 (padded
+            # to 48) with dv = 36 and 30 (a partial column tile; 30 rows of
+            # v are not 16-byte aligned), dv = 96 (a half-width second dv
+            # tile), dk = dv = 128 (the largest dk, two dv tiles)
+            (f"B*H=32,T=37,C=37,uniform,bonus={bonus}",
+             inputs(32, 37, 64, 64, 8), 128, bonus, True),
+            (f"B*H=32,T=100,C=100,uniform,bonus={bonus}",
+             inputs(32, 100, 64, 64, 9), 128, bonus, True),
+            (f"B*H=8,T=256,dk=40,dv=36,C=128,uniform,bonus={bonus}",
+             inputs(8, 256, 40, 36, 10), 128, bonus, True),
+            (f"B*H=8,T=200(padded),dk=44,dv=30,C=64,uniform,bonus={bonus}",
+             inputs(8, 200, 44, 30, 11), 64, bonus, True),
+            (f"B*H=8,T=256,dv=96,C=128,uniform,bonus={bonus}",
+             inputs(8, 256, 64, 96, 12), 128, bonus, True),
+            (f"B*H=8,T=256,dk=dv=128,C=128,uniform,bonus={bonus}",
+             inputs(8, 256, 128, 128, 13), 128, bonus, True),
             (f"model layer 0,B*H=32,T={mq.shape[1]},C=128,bonus={bonus}",
              (mq, mk, mv, mw, mkw["bonus"], mkw["state"] if mkw["state"]
               is not None else torch.zeros(32, 64, 64, device=card)),
@@ -530,28 +642,51 @@ def lm_phases(card, smi: str) -> dict:
         plain = lambda: ref.chunk_scan_chunked_ref(q, k, v, w, u, s0,
                                                    chunk=min(128, t))
         reps = 50 if t == 1 else 10
+        before = cs.kernel_launches
+        kern()
+        counted = cs.kernel_launches - before
+        nodes = graph_kernel_nodes(kern)
+        want = SCAN_KERNELS["step" if t == 1 else "chunked"]
+        check(counted == nodes == want,
+              f"chunk_scan kernels a call at {label}: library count "
+              f"{counted}, graph kernel nodes {nodes}, want {want}")
         rows[label] = {**chunk_scan_bound(bh, t, 64, 64, 128, True),
+                       "kernels_per_call": counted,
+                       "graph_kernel_nodes_per_call": nodes,
                        "ms": cuda_ms(kern, reps=reps, warmup=3),
                        "device_ms": graph_ms(kern, n),
                        "plain_ms": cuda_ms(plain, reps=reps, warmup=2)}
-    emit("lm_times", card=smi, chunk_scan=rows,
+    resources = {"ptxas": chunk_scan_resources(out_dir),
+                 **cs.resources(128, 64, 64, True)}
+    emit("lm_times", card=smi, chunk_scan=rows, resources=resources,
          decode_tick=dict(live_slots=LM_SLOTS, **decode_tick),
          prefill_1024=prefill_trace)
 
-    p = rows["prefill"]
+    p, d, big = rows["prefill"], rows["decode"], rows["large"]
     return {"name": "chunk_scan", "route": "cuda",
             "source": "src/repro_torch/csrc/chunk_scan.cu",
             "replaces": "src/repro/kernels/chunk_scan.py:92",
             "launches": launches,
             "launches_path": "lm: 24 per prefill and per decode step",
+            "kernel_launches": kernel_launches,
+            "kernels_per_call": {"prefill": p["kernels_per_call"],
+                                 "decode": d["kernels_per_call"]},
+            "graph_kernel_nodes_per_call": {
+                "prefill": p["graph_kernel_nodes_per_call"],
+                "decode": d["graph_kernel_nodes_per_call"]},
             "max_abs_err": max(err_o, err_s), "ms": p["ms"],
             "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
-            "bound_by": p["bound_by"], "library_ms": None,
+            "bound_by": p["bound_by"], "bound_f32_ms": p["bound_f32_ms"],
+            "library_ms": None,
             "shape": p["shape"],
             "device_ms": p["device_ms"],
-            "decode_ms": rows["decode"]["ms"],
-            "decode_device_ms": rows["decode"]["device_ms"],
-            "decode_bound_ms": rows["decode"]["bound_ms"],
+            "decode_ms": d["ms"], "decode_device_ms": d["device_ms"],
+            "decode_bound_ms": d["bound_ms"],
+            "large_device_ms": big["device_ms"],
+            "large_plain_ms": big["plain_ms"],
+            "large_bound_ms": big["bound_ms"],
+            "large_bound_f32_ms": big["bound_f32_ms"],
+            "resources": resources,
             "tolerance": f"o {SCAN_O_TOL} x max(|o|,1), state {SCAN_S_TOL}"}
 
 
@@ -571,6 +706,7 @@ def main() -> int:
     from repro_torch.flows.synthetic import (
         FlowDataset, make_dataset, make_packet_stream,
     )
+    from repro_torch.flows.windows import _FLOW_BATCH as fw_batch
     from repro_torch.flows.windows import (
         _all_feature_rows, window_features, window_packets,
     )
@@ -610,6 +746,10 @@ def main() -> int:
     setup_s = time.perf_counter() - t0
     eng = Engine.from_model(pdt)
     fw_setup = fw.launches
+    n_batches = -(-tr.n_flows // fw_batch)
+    check(fw_setup == 3 * n_batches,
+          f"window_features: one launch per window and flow batch, got "
+          f"{fw_setup}")
     t0 = time.perf_counter()
     res = eng.run(wp)                                   # kernels A and B
     run_s = time.perf_counter() - t0
@@ -639,6 +779,7 @@ def main() -> int:
     f1 = macro_f1(tile(te.labels), res.labels, ds.n_classes)
     emit("main", n_train=tr.n_flows, n_test=te.n_flows, B=B_MAIN, P=P, W=W,
          S=S, k=k, T=T, L=L, launches=launches,
+         window_features_launches=fw_setup,
          engine_run_launches=run_launches, macro_f1=f1,
          mean_recircs=float(res.recircs.mean()),
          n_unterminated=res.n_unterminated, setup_s=setup_s,
@@ -970,7 +1111,7 @@ def main() -> int:
          steady_state_tick=dict(index=profiled,
                                 packets=prof_pkts, **tick_prof))
 
-    lm = lm_phases(card, smi)
+    lm = lm_phases(card, smi, out_dir)
 
     # -- 8. summary -----------------------------------------------------------
     print(json.dumps({"kernels": [

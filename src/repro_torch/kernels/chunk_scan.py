@@ -11,12 +11,21 @@ within the tolerances of ``tests/test_kernels.py`` (o within
     GLA form:            o_t = q_t S_t
     bonus (RWKV6) form:  o_t = q_t (S_{t-1} + diag(u) k_t^T v_t)
 
-What bounds it on the H100: f32 operations (the two intra-chunk
-products and the two state products per chunk; see the source's head
-note for the layout).  :func:`chunk_scan_kernel` only launches: it takes
-CUDA tensors and raises on anything else.  ``kernels.ops.chunk_scan``
-pads T, defaults the state and the bonus, and routes a CPU tensor to the
-plain version instead.
+Design (the source's head note has the details): only the (dk x dv)
+state recurrence is sequential across chunks, so a call of C >= 2 is
+three launches -- one per chunk that computes its prefix once, the
+output kernel's operands and its state contribution; one in-order pass
+over the chunks that leaves the state entering each chunk in scratch;
+one per chunk and 64-row tile that computes the output -- with the four
+products on the tensor cores in split TF32 (three TF32 products per f32
+product: 1xTF32 misses the tolerance, ``tests/test_torch_lm.py`` shows
+why).  A decode step (C == 1) is one launch of a one-step kernel on the
+CUDA cores.  What bounds it at the prefill shape: bytes just ahead of
+split-TF32 operations; in practice the latency and instruction
+throughput of each CTA's phases.  :func:`chunk_scan_kernel` only
+launches: it takes CUDA tensors and raises on anything else.  ``kernels.ops.chunk_scan`` pads T,
+defaults the state and the bonus, and routes a CPU tensor to the plain
+version instead.
 """
 from __future__ import annotations
 
@@ -24,12 +33,15 @@ import ctypes
 
 import torch
 
-#: kernel launches since the last reset (``chip_smoke.py`` zeroes it
-#: before driving the LM path)
+#: calls that launched the kernel since the last reset (``chip_smoke.py``
+#: zeroes it before driving the LM path)
 launches = 0
+#: device kernels those calls launched, counted by the library at each
+#: ``<<<>>>`` that succeeded (3 a call for C >= 2, 1 for C == 1)
+kernel_launches = 0
 
 _SOURCE = "chunk_scan.cu"
-MAX_CHUNK = 128          # the kernel's att tile: 4 column blocks of 32
+MAX_CHUNK = 128          # the largest att tile of the output kernel
 MAX_DK = 128
 
 
@@ -39,12 +51,33 @@ def _lib():
     if lib.chunk_scan_launch.argtypes is None:
         p = ctypes.c_void_p
         i = ctypes.c_int
-        lib.chunk_scan_launch.argtypes = [p, p, p, p, p, p, p, p,
-                                          i, i, i, i, i, i, p]
+        lib.chunk_scan_launch.argtypes = [p, p, p, p, p, p, p, p, p,
+                                          i, i, i, i, i, i, p,
+                                          ctypes.POINTER(i)]
+        lib.chunk_scan_scratch_floats.argtypes = [i, i, i, i, i]
+        lib.chunk_scan_scratch_floats.restype = ctypes.c_longlong
         lib.chunk_scan_launch.restype = ctypes.c_int
+        lib.chunk_scan_resources.argtypes = [i, i, i, i, p]
+        lib.chunk_scan_resources.restype = ctypes.c_int
         lib.chunk_scan_error_string.argtypes = [ctypes.c_int]
         lib.chunk_scan_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def resources(C: int, dk: int, dv: int, use_bonus: bool) -> dict:
+    """Dynamic shared memory (bytes) and resident CTAs per SM of the
+    chunk-parallel prep and output kernels at one shape (call after a
+    launch at that shape, which raises the shared-memory ceiling)."""
+    lib = _lib()
+    out = (ctypes.c_int * 4)()
+    err = lib.chunk_scan_resources(C, dk, dv, int(bool(use_bonus)), out)
+    if err != 0:
+        raise RuntimeError("chunk_scan resources: "
+                           + lib.chunk_scan_error_string(err).decode())
+    return {"prep_kernel_smem_bytes": out[0],
+            "out_kernel_smem_bytes": out[1],
+            "prep_kernel_ctas_per_sm": out[2],
+            "out_kernel_ctas_per_sm": out[3]}
 
 
 def chunk_scan_kernel(
@@ -64,7 +97,7 @@ def chunk_scan_kernel(
     ``C = min(chunk, T)`` must divide T (``ops.chunk_scan`` pads);
     C <= 128, dk a multiple of 4 up to 128.
     """
-    global launches
+    global launches, kernel_launches
     if q.device.type != "cuda":
         raise ValueError(f"chunk_scan_kernel needs CUDA tensors, got "
                          f"{q.device}; kernels.ops.chunk_scan routes CPU "
@@ -93,16 +126,23 @@ def chunk_scan_kernel(
     if dk % 4 != 0 or dk > MAX_DK:
         raise ValueError(f"dk={dk}: the kernel takes a multiple of 4 up to "
                          f"{MAX_DK}")
-    o = torch.empty((B, T, dv), dtype=torch.float32, device=q.device)
-    s_out = torch.empty((B, dk, dv), dtype=torch.float32, device=q.device)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o = torch.empty((B, T, dv), **f32)
+    s_out = torch.empty((B, dk, dv), **f32)
     if B == 0:
         return o, s_out
     lib = _lib()
+    # scratch of the chunk-parallel route (the source says what it holds)
+    scratch = torch.empty(lib.chunk_scan_scratch_floats(B, T, dk, dv, C),
+                          **f32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    launched = ctypes.c_int(0)
     err = lib.chunk_scan_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), decay.data_ptr(),
         bonus.data_ptr(), state.data_ptr(), o.data_ptr(), s_out.data_ptr(),
-        B, T, dk, dv, C, int(bool(use_bonus)), stream)
+        scratch.data_ptr(), B, T, dk, dv, C, int(bool(use_bonus)), stream,
+        ctypes.byref(launched))
+    kernel_launches += launched.value
     if err != 0:
         msg = lib.chunk_scan_error_string(err).decode()
         raise RuntimeError(f"chunk_scan kernel launch failed (B={B}, T={T}, "

@@ -171,6 +171,99 @@ def test_chunk_scan_state_continuity():
     torch.testing.assert_close(s_full, s2, rtol=2e-4, atol=2e-4)
 
 
+def _tf32(x: torch.Tensor, rounding: str) -> torch.Tensor:
+    """x (f32) cut to TF32's 10 mantissa bits: ``"trunc"`` drops the low
+    13 bits, ``"rna"`` rounds half away from zero first (cvt.rna.tf32)."""
+    b = x.contiguous().view(torch.int32)
+    if rounding == "rna":
+        b = b + 0x1000
+    return (b & -0x2000).view(torch.float32)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """a @ b (f32) as the tensor cores take it: ``terms=3`` is the
+    kernel's split TF32 (hi = a cut to TF32, lo = a - hi read as TF32,
+    lo*hi + hi*lo + hi*hi), ``terms=1`` plain TF32 (hi*hi, rounded).
+    TF32 products are exact; the sums are taken in f64 here, then
+    rounded once to f32."""
+    d = torch.float64
+    if terms == 1:
+        return (_tf32(a, "rna").to(d) @ _tf32(b, "rna").to(d)).float()
+    ah, bh = _tf32(a, "trunc"), _tf32(b, "trunc")
+    al, bl = _tf32(a - ah, "trunc"), _tf32(b - bh, "trunc")
+    return (al.to(d) @ bh.to(d) + ah.to(d) @ bl.to(d)
+            + ah.to(d) @ bh.to(d)).float()
+
+
+def _kernel_emulation(q, k, v, w, u, s0, C: int, terms: int):
+    """The kernel's arithmetic in its three-phase order (csrc/chunk_scan.cu,
+    C >= 2), with each of the four products through ``_mm``: per chunk
+    cum, the operands and dS_c = (k exp(total - cum))^T v; then the
+    states entering each chunk, in order; then o = att v + (q exp(cum_q))
+    S_in[c] + (q.u.k) v."""
+    B, T, dk = q.shape
+    nC = T // C
+    f = lambda x: x.reshape(B, nC, C, -1)
+    qc, kc, vc, wc = f(q), f(k), f(v), f(w)
+    logw = torch.log(torch.clamp(wc, min=1e-38))
+    cum = torch.cumsum(logw, dim=2)
+    total, m = cum[:, :, -1], cum[:, :, C // 2]
+    cum_q = cum if u is None else cum - logw
+    q_in = qc * torch.exp(torch.clamp(cum_q - m[:, :, None], -45.0, 45.0))
+    q_st = qc * torch.exp(cum_q)
+    k_in = kc * torch.exp(torch.clamp(m[:, :, None] - cum, -45.0, 45.0))
+    kd = kc * torch.exp(total[:, :, None] - cum)
+    ds = _mm(kd.transpose(-1, -2), vc, terms)               # (B, nC, dk, dv)
+    s_in, S = [], s0
+    for c in range(nC):
+        s_in.append(S)
+        S = torch.exp(total[:, c])[:, :, None] * S + ds[:, c]
+    s_in = torch.stack(s_in, dim=1)
+    ones = torch.ones((C, C), dtype=torch.bool)
+    mask = torch.tril(ones) if u is None else torch.tril(ones, -1)
+    att = torch.where(mask, _mm(q_in, k_in.transpose(-1, -2), terms), 0.0)
+    o = _mm(att, vc, terms) + _mm(q_st, s_in, terms)
+    if u is not None:
+        o = o + ((qc * u[:, None, None, :]) * kc).sum(-1, keepdim=True) * vc
+    return o.reshape(B, T, -1), S
+
+
+@pytest.mark.parametrize("decays", ["uniform", "model"])
+@pytest.mark.parametrize("bonus", [False, True])
+def test_split_tf32_holds_the_kernel_tolerance(bonus, decays):
+    """Pins the precision of the kernel's tensor-core products: its
+    arithmetic emulated on the CPU (the three-phase order, each product's
+    operands split as the kernel splits them) is within the kernel
+    tolerance of JAX's ``chunk_scan_chunked_ref``, and the same order with
+    1xTF32 products is not.  B*H = 4, T = 512, dk = dv = 64, C = 128;
+    decays U[0.5, 0.999] or exp(-exp(0.3 N)) (~0.37, RWKV6's own range).
+    Observed, as error / tolerance (o against 2e-4 * max(|o|, 1), the
+    state against 3e-4), over both forms and both decay regimes: split
+    TF32 0.007-0.013 (o) and 0.08-0.15 (state, mostly the two f32
+    summation orders); 1xTF32 1.95-2.43 (o) and 11.1-16.3 (state)."""
+    rng = np.random.default_rng(5 + bonus)
+    q, k, v, w, u, s0 = _scan_case(rng, 4, 512, 64, 64, bonus)
+    if decays == "model":
+        w = np.exp(-np.exp(0.3 * rng.normal(size=w.shape))).astype(
+            np.float32)
+    want = jref.chunk_scan_chunked_ref(
+        *[None if a is None else jnp.asarray(a) for a in (q, k, v, w, u, s0)],
+        chunk=128)
+    o_ref, s_ref = _np(want[0]), _np(want[1])
+    tx = [None if a is None else _t(a) for a in (q, k, v, w, u, s0)]
+    ratios = {}
+    for terms in (3, 1):
+        o, st = map(_np, _kernel_emulation(*tx, C=128, terms=terms))
+        ratios[terms] = (
+            float(np.abs(o - o_ref).max())
+            / (O_TOL * max(float(np.abs(o_ref).max()), 1.0)),
+            float(np.abs(st - s_ref).max()) / S_TOL)
+    print(f"error / tolerance (o, state): split TF32 {ratios[3]}, "
+          f"1xTF32 {ratios[1]}")
+    assert max(ratios[3]) <= 1.0, ratios
+    assert max(ratios[1]) > 1.0, ratios
+
+
 # ---------------------------------------------------------------------------
 # RWKV6 at reduced size: the port against the JAX model
 # ---------------------------------------------------------------------------

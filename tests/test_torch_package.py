@@ -476,9 +476,25 @@ def _scan_inputs(device, BH: int, T: int, dk: int, dv: int, decays: str,
 
 
 #: (B*H, T, chunk, dk, dv): the lm_check shapes of chip_smoke.py --
-#: rwkv6-1.6b's prefill, decode, a padded prompt, the reduced model
+#: rwkv6-1.6b's prefill, decode, a padded prompt, the reduced model, 32
+#: chunks (the state passed across many chunks) and one chunk (none);
+#: then the kernel's padded tiles: a chunk of 37 rows and one of 100 (two
+#: row tiles, the second of 36 rows), dk = 40 and 44 (padded to 48), dv = 36
+#: and 30 (a partial 8-column tile; 30 also unaligned rows of v), dv = 96
+#: (a second, half-width dv tile) and dk = dv = 128 (the largest dk, two
+#: dv tiles)
 LM_SCAN_SHAPES = [(32, 1024, 128, 64, 64), (32, 1, 128, 64, 64),
-                  (32, 300, 128, 64, 64), (8, 64, 16, 16, 16)]
+                  (32, 300, 128, 64, 64), (8, 64, 16, 16, 16),
+                  (32, 4096, 128, 64, 64), (32, 128, 128, 64, 64),
+                  (32, 37, 128, 64, 64), (32, 100, 128, 64, 64),
+                  (8, 256, 128, 40, 36), (8, 200, 64, 44, 30),
+                  (8, 256, 128, 64, 96), (8, 256, 128, 128, 128)]
+
+
+def _kernels_per_call(C: int) -> int:
+    """Device kernels the design launches per call: the one-step kernel at
+    C == 1, else the prep, state-pass and output kernels."""
+    return 1 if C == 1 else 3
 
 
 def test_chunk_scan_wrapper_refuses_cpu_tensors():
@@ -506,10 +522,12 @@ def test_chunk_scan_kernel_matches_plain_on_card(card, BH, T, chunk, dk, dv,
     from repro_torch.kernels import ops
     q, k, v, w, u, s0 = _scan_inputs(card, BH, T, dk, dv, decays, seed=T)
     u = u if bonus else None
-    before = cs.launches
+    before = cs.launches, cs.kernel_launches
     o, s = ops.chunk_scan(q, k, v, w, u, s0, chunk=chunk)
     torch.cuda.synchronize()
-    assert cs.launches == before + 1
+    assert cs.launches == before[0] + 1
+    assert cs.kernel_launches == before[1] + _kernels_per_call(
+        min(chunk, T))
     o_ref, s_ref = ops.chunk_scan(q, k, v, w, u, s0, chunk=chunk, impl="ref")
     scale = max(float(o_ref.abs().max()), 1.0)
     assert float((o - o_ref).abs().max()) <= 2e-4 * scale
@@ -517,6 +535,46 @@ def test_chunk_scan_kernel_matches_plain_on_card(card, BH, T, chunk, dk, dv,
     # deterministic: a second launch gives the same bits
     o2, s2 = ops.chunk_scan(q, k, v, w, u, s0, chunk=chunk)
     assert torch.equal(o, o2) and torch.equal(s, s2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bonus", [False, True])
+@pytest.mark.parametrize("T", [1024, 1])
+def test_chunk_scan_graph_replay_equals_eager_on_card(card, T, bonus):
+    """A call captured in a CUDA graph and replayed gives the eager call's
+    bits, and one call is 3 kernel nodes (chunk-parallel) or 1 (a decode
+    step), read from the captured graph through the CUDA runtime, as the
+    library's own count says."""
+    import ctypes
+
+    from repro_torch.kernels import chunk_scan as cs
+    q, k, v, w, u, s0 = _scan_inputs(card, 32, T, 64, 64, "uniform", seed=9)
+    u = u if bonus else torch.zeros_like(u)
+    run = lambda: cs.chunk_scan_kernel(q, k, v, w, u, s0, chunk=128,
+                                       use_bonus=bonus)
+    before = cs.kernel_launches
+    o, s = run()                                   # eager (and warm)
+    torch.cuda.synchronize()
+    assert cs.kernel_launches - before == _kernels_per_call(min(128, T))
+    g = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(g):
+        go, gs = run()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(go, o) and torch.equal(gs, s)
+    rt = ctypes.CDLL("libcudart.so.12")
+    graph, n = ctypes.c_void_p(g.raw_cuda_graph()), ctypes.c_size_t(0)
+    assert rt.cudaGraphGetNodes(graph, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert rt.cudaGraphGetNodes(graph, nodes, ctypes.byref(n)) == 0
+    kinds = []
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert rt.cudaGraphNodeGetType(ctypes.c_void_p(node),
+                                       ctypes.byref(kind)) == 0
+        kinds.append(kind.value)
+    # cudaGraphNodeTypeKernel == 0
+    assert kinds == [0] * _kernels_per_call(min(128, T))
 
 
 @pytest.mark.gpu
