@@ -27,18 +27,27 @@ exits nonzero; nothing is caught and passed over):
    seed=1)`` streamed by ``make_packet_stream(profile="steady",
    concurrency=65536)`` in ticks of 32,768 packets through
    ``FlowTableServer(eng, n_buckets=32768, bucket_size=8)`` (fused tick
-   engine, ``impl=None``: the fold-and-finalize kernel and the range-match
-   kernel), then ``flush()``.  One verdict per flow, each equal to
-   ``Engine.run`` on the rebuilt windows and to ``pdt.predict``; packets/s,
-   verdicts/s and per-tick host latency;
+   engine, ``impl=None``: one launch of the tick kernel per tick), then
+   ``flush()``.  The tick kernel launched once per tick and no other
+   serving kernel (no flow spills in this stream, so no batch walk); one
+   verdict per flow, each equal to ``Engine.run`` on the rebuilt windows
+   and to ``pdt.predict``; packets/s, verdicts/s, per-tick host latency
+   and each host span's share of serving time;
 6. serve_check -- both fold kernels against their plain versions at the
-   serving rank width and at a width that is no multiple of a block, and
-   on a 4,096-flow prefix with a 512-slot table (spill) and a timeout,
-   the ``cuda`` server against the ``fused`` server for both tick engines:
-   every verdict in order and every stats field;
-7. serve_times -- CUDA-event medians of both fold kernels and their plain
-   versions, the kernels' device time from CUDA-graph replay, beside
-   their bounds, and one traced steady-state tick;
+   serving rank width and at a width that is no multiple of a block; the
+   tick kernel against its plain version (the rank loop, on a clone of
+   the same state) on every tick of a 4,096-flow prefix with a 512-slot
+   table (spill) and a timeout, and on the 8 main-stream ticks up to the
+   traced one: every ``TickState`` field and verdict array; on that
+   prefix the ``cuda`` server against the ``fused`` server for both tick
+   engines: every verdict in order and every stats field;
+7. serve_times -- the tick kernel's device time at the steady-state
+   tick's (R, C) (graph replay of restore-and-call less the restore),
+   its call time, the rank loop's time; kernel B bare and behind the SID
+   dispatch at the serving width (graph replay); CUDA-event medians of
+   both fold kernels and their plain versions, their device time from
+   CUDA-graph replay; each beside its bound; one traced steady-state
+   tick;
 8. lm -- the LM slice at full width: ``rwkv6-1.6b`` (24 layers, D = 2048,
    32 heads of 64, vocab 65536, chunk 128, 1.6 B random f32 parameters
    made on the card from a seeded generator) served by
@@ -103,6 +112,7 @@ CHECK_CONCURRENCY = 2048.0
 CHECK_TIMEOUT = 0.05      # stream seconds; evicts some idle flows (a
 #                           shorter one evicts so many that none spill)
 CHECK_TICK = 4096
+MAIN_TICKS_CHECKED = 8    # main-stream ticks held against the rank loop
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 TF32_OPS_PER_S = 494.7e12  # H100 SXM TF32 tensor cores, dense
@@ -138,6 +148,27 @@ def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def cuda_ms_after(prep, fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median CUDA-event time of ``fn`` alone, ``prep`` run before each
+    call outside the events."""
+    import torch
+    for _ in range(warmup):
+        prep()
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        prep()
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -253,6 +284,54 @@ def profile_run(fn, top: int = 12, warmup: bool = True,
                 r.update(calls=e.count, host_ms=e.cpu_time_total / 1e3,
                          device_ms_launched=e.device_time_total / 1e3)
     return out
+
+
+def tick_vs_plain(tk, log: dict):
+    """A stand-in for ``kernels.tick_step.tick_step`` on the card route:
+    the tick kernel runs on the server's state, the plain rank loop on a
+    clone of the state as it was, and every ``TickState`` field (rows
+    ``[:N]``) and the five verdict arrays must be equal (``torch.equal``).
+    ``log`` gathers the ticks, cells and verdicts compared and keeps the
+    last tick's inputs and plain result (``"last"``)."""
+    import torch
+    orig = tk.tick_step
+
+    def both(state, slots_rc, pkt_rc, dev, *, n_subtrees, cuda):
+        check(cuda, "the serving route under check runs the kernels")
+        before = tk.TickState(*(t.clone() for t in state))
+        plain = tk.TickState(*(t.clone() for t in state))
+        _, want = orig(plain, slots_rc, pkt_rc, dev, n_subtrees=n_subtrees,
+                       cuda=False)
+        got = orig(state, slots_rc, pkt_rc, dev, n_subtrees=n_subtrees,
+                   cuda=True)
+        torch.cuda.synchronize()
+        N = state.sid.shape[0] - 1
+        for name in tk.TickState._fields:
+            check(torch.equal(getattr(state, name)[:N],
+                              getattr(plain, name)[:N]),
+                  f"tick kernel == rank loop: {name}, tick {log['ticks']}")
+        for i, (a, b) in enumerate(zip(got[1], want)):
+            check(torch.equal(a, b),
+                  f"tick kernel == rank loop: verdict {i}, tick "
+                  f"{log['ticks']}")
+        log["ticks"] += 1
+        log["cells"] += int((slots_rc != N).sum())
+        log["verdicts"] += int(want[0].sum())
+        log["shapes"].add(f"{slots_rc.shape[0]}x{slots_rc.shape[1]}")
+        log["last"] = (before, slots_rc, pkt_rc, plain)
+        return got
+
+    return both
+
+
+def new_tick_log() -> dict:
+    return {"ticks": 0, "cells": 0, "verdicts": 0, "shapes": set()}
+
+
+def tick_log_summary(log: dict) -> dict:
+    return {"ticks": log["ticks"], "cells": log["cells"],
+            "verdicts": log["verdicts"], "shapes": sorted(log["shapes"]),
+            "equal": True, "max_abs_err": 0.0}
 
 
 def nvidia_smi() -> str:
@@ -712,6 +791,7 @@ def main() -> int:
     )
     from repro_torch.kernels import _build, dispatch, dt_traverse, ref
     from repro_torch.kernels import feature_window as fw
+    from repro_torch.kernels import tick_step as tk
     from repro_torch.obs import reset_spans, span_totals
     from repro_torch.serve import FlowTableServer, StreamVerdicts
 
@@ -914,7 +994,7 @@ def main() -> int:
     calls, tick_s, tick_dispatches, shapes = [], [], [], []
     torch.cuda.synchronize()
     fw.launches = fw.update_launches = fw.update_finalize_launches = 0
-    dt_traverse.launches = 0
+    dt_traverse.launches = tk.tick_launches = 0
     reset_spans()
     for i, batch in enumerate(ticks):
         d0 = srv.stats.dispatches
@@ -938,15 +1018,19 @@ def main() -> int:
         merged = host_spans.setdefault(path, {"calls": 0, "s": 0.0})
         merged["calls"] += t["calls"]
         merged["s"] += t["s"]
-    serve_launches = {"feature_update_finalize": fw.update_finalize_launches,
+    serve_launches = {"tick_step": tk.tick_launches,
+                      "feature_update_finalize": fw.update_finalize_launches,
                       "dt_traverse": dt_traverse.launches,
                       "feature_update": fw.update_launches,
                       "feature_window": fw.launches}
-    check(serve_launches["feature_update_finalize"] > 0
-          and serve_launches["dt_traverse"] > 0,
-          f"serving launched kernels 4 and 2, got {serve_launches}")
-    check(serve_launches["feature_update"] == 0,
-          "the fused tick engine runs no bare fold")
+    # no flow spills in this stream, so every tick folds resident flows:
+    # one fused tick each, and no batch walk (kernels A and B) runs
+    check(srv.stats.spilled == 0, "the serving stream spills no flow")
+    check(serve_launches == {"tick_step": len(ticks),
+                             "feature_update_finalize": 0, "dt_traverse": 0,
+                             "feature_update": 0, "feature_window": 0},
+          f"one tick kernel launch per fused tick and no other serving "
+          f"kernel, got {serve_launches} over {len(ticks)} ticks")
     v = StreamVerdicts.concat(calls)
     check(v.n_flows == SERVE_FLOWS
           and np.unique(v.flow_id).size == SERVE_FLOWS,
@@ -985,6 +1069,8 @@ def main() -> int:
          launches_per_tick={k: n / len(ticks)
                             for k, n in serve_launches.items()},
          rank_x_width_per_tick=shape_counts, host_spans_s=host_spans,
+         host_span_share={path: t["s"] / wall_s
+                          for path, t in host_spans.items()},
          stats=srv.stats.as_dict(),
          serve_recirc_overhead=srv.registry.gauge(
              "serve_recirc_overhead").value,
@@ -1028,20 +1114,31 @@ def main() -> int:
     stream_p = make_packet_stream(ds_p, seed=7, profile="steady",
                                   concurrency=CHECK_CONCURRENCY)
     route_runs = {}
+    orig_tick = tk.tick_step
+    prefix_log = new_tick_log()
     for tick_engine in ("fused", "legacy"):
         runs = {}
         for impl in ("cuda", "fused"):
             fw.update_launches = fw.update_finalize_launches = 0
+            tk.tick_launches = 0
             srv_c = FlowTableServer(
                 eng, n_buckets=CHECK_TABLE[0], bucket_size=CHECK_TABLE[1],
                 timeout=CHECK_TIMEOUT, tick_engine=tick_engine,
                 options=EngineOptions(impl=impl))
+            if tick_engine == "fused" and impl == "cuda":
+                # every tick of the prefix: kernel against rank loop
+                tk.tick_step = tick_vs_plain(tk, prefix_log)
             t0 = time.perf_counter()
-            got_calls = ([srv_c.ingest(b) for b in stream_p.ticks(CHECK_TICK)]
-                         + [srv_c.flush()])
+            try:
+                got_calls = ([srv_c.ingest(b)
+                              for b in stream_p.ticks(CHECK_TICK)]
+                             + [srv_c.flush()])
+            finally:
+                tk.tick_step = orig_tick
             runs[impl] = (got_calls, srv_c.stats.as_dict(), {
                 "feature_update": fw.update_launches,
-                "feature_update_finalize": fw.update_finalize_launches},
+                "feature_update_finalize": fw.update_finalize_launches,
+                "tick_step": tk.tick_launches},
                 time.perf_counter() - t0)
         (a_calls, a_stats, a_l, a_s), (b_calls, b_stats, b_l, b_s) = (
             runs["cuda"], runs["fused"])
@@ -1053,19 +1150,51 @@ def main() -> int:
         check(a_stats == b_stats, f"{tick_engine} server stats cuda == fused")
         check(a_stats["spilled"] > 0 and a_stats["evicted"] > 0,
               f"the check run spills and evicts: {a_stats}")
-        check(b_l == {"feature_update": 0, "feature_update_finalize": 0},
-              "the fused route launches no fold kernel")
-        used = ("feature_update" if tick_engine == "legacy"
-                else "feature_update_finalize")
-        check(a_l[used] > 0, f"{tick_engine} cuda server launched {used}")
+        check(b_l == {"feature_update": 0, "feature_update_finalize": 0,
+                      "tick_step": 0},
+              "the fused route launches no serving kernel")
+        if tick_engine == "legacy":
+            check(a_l["feature_update"] > 0 and a_l["tick_step"] == 0,
+                  f"legacy cuda server: fold kernel only, got {a_l}")
+        else:
+            check(a_l["tick_step"] == prefix_log["ticks"] > 0
+                  and a_l["feature_update"] == 0
+                  and a_l["feature_update_finalize"] == 0,
+                  f"fused cuda server: one tick kernel a tick, got {a_l} "
+                  f"over {prefix_log['ticks']} ticks")
         route_runs[tick_engine] = {
             "stats": a_stats, "cuda_launches": a_l,
             "cuda_launches_per_tick": {k: n / a_stats["ticks"]
                                        for k, n in a_l.items()},
             "cuda_s": a_s, "fused_s": b_s, "verdicts_equal": True,
             "stats_equal": True}
+
+    # the main stream on a fresh server: kernel against rank loop on the
+    # last MAIN_TICKS_CHECKED ticks up to the traced steady-state tick,
+    # whose inputs serve_times then replays
+    main_log = new_tick_log()
+    srv_m = FlowTableServer(eng, n_buckets=SERVE_TABLE[0],
+                            bucket_size=SERVE_TABLE[1])
+    first_checked = profiled + 1 - MAIN_TICKS_CHECKED
+    checker = tick_vs_plain(tk, main_log)
+    for i, batch in enumerate(ticks[:profiled + 1]):
+        if i >= first_checked:
+            tk.tick_step = checker
+        try:
+            srv_m.ingest(batch)
+        finally:
+            tk.tick_step = orig_tick
+    check(main_log["ticks"] == MAIN_TICKS_CHECKED,
+          f"{MAIN_TICKS_CHECKED} main-stream ticks checked")
+    tick_in, slots_rc, pkt_rc, tick_plain = main_log.pop("last")
+    del srv_m
     emit("serve_check", tolerance="zero: torch.equal and np.array_equal",
-         comparisons=serve_checks, prefix_flows=CHECK_FLOWS,
+         comparisons=serve_checks,
+         tick_kernel_vs_rank_loop={
+             "check_prefix": tick_log_summary(prefix_log),
+             "main_stream": dict(tick_log_summary(main_log),
+                                 ticks_from=first_checked)},
+         prefix_flows=CHECK_FLOWS,
          table_slots=CHECK_TABLE[0] * CHECK_TABLE[1],
          timeout_s=CHECK_TIMEOUT, servers=route_runs)
 
@@ -1094,7 +1223,109 @@ def main() -> int:
     bound3, by3 = bound_ms(bytes3, 4 * n_slot)
     bound4, by4 = bound_ms(bytes4, 5 * n_slot)
     legacy_ticks = route_runs["legacy"]["stats"]["ticks"]
+
+    # the tick kernel on the steady-state tick checked above: its device
+    # time is the graph replay of (restore the state, one call) less the
+    # replay of the restore alone; call_ms adds the host launch (CUDA
+    # events around one call); the plain rank loop by CUDA events
+    n_sub = eng.tables.n_subtrees
+    work = tk.TickState(*(t.clone() for t in tick_in))
+
+    def restore():
+        for dst, src in zip(work, tick_in):
+            dst.copy_(src)
+
+    def kernel_call():
+        return tk.tick_step_kernel(work, slots_rc, pkt_rc, dev,
+                                   n_subtrees=n_sub)
+
+    def tick_once():
+        restore()
+        return kernel_call()
+
+    restore_ms = graph_ms(restore, 20)
+    tick_ms = graph_ms(tick_once, 20) - restore_ms
+    tick_call_ms = cuda_ms_after(restore, kernel_call, reps=20, warmup=3)
+    tick_plain_ms = cuda_ms_after(restore, lambda: tk.tick_step(
+        work, slots_rc, pkt_rc, dev, n_subtrees=n_sub, cuda=False),
+        reps=3, warmup=1)
+    tick_once()
+    torch.cuda.synchronize()
+    N = work.sid.shape[0] - 1
+    for name in tk.TickState._fields:
+        check(torch.equal(getattr(work, name)[:N],
+                          getattr(tick_plain, name)[:N]),
+              f"timed tick kernel == rank loop: {name}")
+    # least traffic: the slot indices, the live packets, each touched
+    # row's state read and written once, a bounds pair per window
+    # advance, the four (N + 1,) verdict buffers written, the tables
+    # read.  Operations: ~5 a slot per folded packet, k*T + 2*L*k
+    # compares per hop (an advance or a verdict).
+    R_t, C_t = slots_rc.shape
+    real = slots_rc != N
+    n_live = int(real.sum())
+    n_rows = int(torch.unique(slots_rc[real]).numel())
+    advances = int((tick_plain.part[:N] - tick_in.part[:N]).sum())
+    finished = int((tick_plain.retired[:N] - tick_in.retired[:N]).sum())
+    table_bytes = sum(t.numel() * t.element_size() for t in dev)
+    tick_bytes = (slots_rc.numel() * 4 + n_live * 6 * 4
+                  + n_rows * (k * 8 + 7 * 4) * 2 + advances * 8
+                  + 4 * (N + 1) * 4 + table_bytes)
+    tick_ops = 5 * n_live * k + (advances + finished) * (k * T + 2 * L * k)
+    tick_bound, tick_by = bound_ms(tick_bytes, tick_ops)
+
+    times_checks = {}
+    # kernel B at the serving width: the steady-state tick's C columns,
+    # their registers finalized from the state the tick left and their
+    # SIDs, by graph replay, bare and behind the SID dispatch
+    cols = slots_rc[0].long()
+    sid_c = tick_plain.sid[cols].clamp(0, S - 1)
+    sl = sid_c.long()
+    regs_c = ref.feature_finalize_ref(tick_plain.acc[cols],
+                                      tick_plain.seen[cols],
+                                      dev.slot_op[sl], dev.slot_init[sl])
+    d_s = dispatch.sid_dispatch(sid_c, n_subtrees=S, block_b=bb)
+    regs_gs = regs_c.new_zeros((d_s.block_sid.shape[0] * bb, k))
+    regs_gs[d_s.dest.long()] = regs_c[d_s.order.long()]
+    bs_args = (d_s.block_sid, regs_gs, *dev[4:])
+    trav = lambda: dt_traverse.dt_traverse_kernel(*bs_args, block_b=bb)
+    disp = lambda: dispatch.dispatch_dt_traverse(regs_c, sid_c, *dev[4:],
+                                                 block_b=bb)
+    err_bs = compare(f"dt_traverse[blocks,C={C_t}]", trav(),
+                     dt_traverse.dt_traverse_blocks_ref(*bs_args,
+                                                        block_b=bb),
+                     times_checks)
+    err_bs = max(err_bs, compare(
+        f"dt_traverse[dispatch,C={C_t}]", disp(),
+        ref.dt_traverse_ref(regs_c, dev.thresholds[sl], dev.leaf_lo[sl],
+                            dev.leaf_hi[sl], dev.leaf_action[sl],
+                            dev.leaf_valid[sl] > 0), times_checks))
+    trav_ms = graph_ms(trav, 200)
+    disp_ms = graph_ms(disp, 50)
+    trav_plain_ms = cuda_ms(lambda: dt_traverse.dt_traverse_blocks_ref(
+        *bs_args, block_b=bb), reps=20, warmup=3)
+    nb_s = d_s.block_sid.shape[0]
+    tables_b = sum(t.numel() * 4 for t in dev[4:])
+    trav_bound, trav_by = bound_ms(
+        nb_s * 4 + nb_s * bb * k * 4 + nb_s * bb * 4 + tables_b,
+        nb_s * bb * (k * T + 2 * L * k))
+    disp_bound, disp_by = bound_ms(C_t * k * 4 + C_t * 4 * 2 + tables_b,
+                                   C_t * (k * T + 2 * L * k))
     emit("serve_times", card=smi, C=C_serve, k=k,
+         tick_step=dict(
+             R=R_t, C=C_t, live_cells=n_live, rows=n_rows,
+             window_advances=advances, verdicts=finished, ms=tick_ms,
+             call_ms=tick_call_ms, restore_ms=restore_ms,
+             plain_ms=tick_plain_ms, bound_ms=tick_bound, bound_by=tick_by,
+             bytes=tick_bytes, ops=tick_ops,
+             launches_per_fused_tick=serve_launches["tick_step"]
+             / len(ticks)),
+         dt_traverse_serving=dict(
+             blocks=nb_s, block_b=bb, ms=trav_ms, plain_ms=trav_plain_ms,
+             bound_ms=trav_bound, bound_by=trav_by,
+             dispatch_ms=disp_ms, dispatch_bound_ms=disp_bound,
+             dispatch_bound_by=disp_by, max_abs_err=err_bs),
+         comparisons=times_checks,
          feature_update_ms=ms3, feature_update_call_ms=call3,
          feature_update_plain_ms=plain3,
          feature_update_bound_ms=bound3, feature_update_bytes=bytes3,
@@ -1129,6 +1360,13 @@ def main() -> int:
          "ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b,
          "bound_by": by_b, "library_ms": None,
          "shape": f"nb={nb},bb={bb},S={S},k={k},T={T},L={L}",
+         "serving_width": {"shape": f"nb={nb_s},bb={bb}", "ms": trav_ms,
+                           "plain_ms": trav_plain_ms,
+                           "bound_ms": trav_bound,
+                           "dispatch_ms": disp_ms,
+                           "dispatch_bound_ms": disp_bound,
+                           "launches_in_serve": serve_launches[
+                               "dt_traverse"]},
          "equal": True},
         {"name": "feature_update", "route": "cuda",
          "source": "src/repro_torch/csrc/feature_update.cu",
@@ -1143,11 +1381,24 @@ def main() -> int:
          "source": "src/repro_torch/csrc/feature_update.cu",
          "replaces": "src/repro/kernels/feature_window.py:276",
          "launches": serve_launches["feature_update_finalize"],
-         "launches_path": "serve: the fused tick engine",
+         "launches_path": "serve: the fused tick engine (the tick kernel "
+                          "folds in its place; timed standalone)",
          "max_abs_err": err4, "ms": ms4, "call_ms": call4,
          "plain_ms": plain4,
          "bound_ms": bound4, "bound_by": by4, "library_ms": None,
          "shape": f"C={C_serve},k={k}", "equal": True},
+        {"name": "tick_step", "route": "cuda",
+         "source": "src/repro_torch/csrc/tick_step.cu",
+         "replaces": "src/repro/kernels/feature_window.py:276 and "
+                     "src/repro/kernels/dt_traverse.py:58, per rank and "
+                     "hop round of src/repro/kernels/tick_step.py:201",
+         "launches": serve_launches["tick_step"],
+         "launches_path": "serve: one per fused tick",
+         "max_abs_err": 0.0, "ms": tick_ms, "call_ms": tick_call_ms,
+         "plain_ms": tick_plain_ms, "bound_ms": tick_bound,
+         "bound_by": tick_by, "library_ms": None,
+         "shape": f"R={R_t},C={C_t},k={k},S={S},T={T},L={L}",
+         "equal": True},
         lm,
     ]}), flush=True)
     print(smi, flush=True)

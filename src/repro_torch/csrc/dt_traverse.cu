@@ -24,7 +24,11 @@
 // thread matches one flow against the staged tables.  Each flow's marks
 // live in shared memory too (k per thread, strided by block_b so the
 // threads of a warp hit distinct banks), which keeps k a runtime value.
+// The match itself (marks_below, first_hit_leaf) lives in fold.cuh,
+// shared with the tick kernel (tick_step.cu).
 #include <cuda_runtime.h>
+
+#include "fold.cuh"
 
 namespace {
 
@@ -62,25 +66,11 @@ __global__ void dt_traverse_kernel(
 
   const long long row = (long long)blockIdx.x * bb + tid;
   const float* r = regs + row * k;
-  for (int j = 0; j < k; ++j) {
-    const float v = r[j];
-    int m = 0;
-    for (int t = 0; t < T; ++t) m += (v > s_thr[j * T + t]) ? 1 : 0;
-    s_marks[j * bb + tid] = m;
-  }
-  int action = -1;
-  for (int l = 0; l < L; ++l) {
-    if (s_valid[l] <= 0) continue;
-    bool hit = true;
-    for (int j = 0; j < k && hit; ++j) {
-      const int m = s_marks[j * bb + tid];
-      hit = (m >= s_lo[l * k + j]) && (m <= s_hi[l * k + j]);
-    }
-    if (hit) {
-      action = s_act[l];
-      break;
-    }
-  }
+  for (int j = 0; j < k; ++j)
+    s_marks[j * bb + tid] = splidt::marks_below(r[j], s_thr + j * T, T);
+  const int action = splidt::first_hit_leaf(
+      [&](int j) { return s_marks[j * bb + tid]; }, s_lo, s_hi, s_act,
+      s_valid, k, L);
   out[row] = action;
 }
 

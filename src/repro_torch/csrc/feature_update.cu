@@ -21,12 +21,11 @@
 // costs.  So the design is the plainest one: one thread per (row, slot),
 // no shared memory, every input read once and every output written once.
 // The k threads of a row are adjacent, so they share the row's packet
-// bytes in one load.  Products and adds are spelled __fmul_rn/__fadd_rn
-// ((v*v)*m, then acc + term) and the build passes -fmad=false, so nothing
-// is contracted into an FMA.
+// bytes in one load.  The row math (fold_slot, finalize_slot) lives in
+// fold.cuh, shared with the tick kernel (tick_step.cu).
 #include <cuda_runtime.h>
 
-#include "packet_fields.cuh"
+#include "fold.cuh"
 
 namespace {
 
@@ -49,34 +48,13 @@ __global__ void feature_update_kernel(
   if (i >= n_slots) return;
   const float* pk = pkt + (i / k) * PKT_NFIELDS;
   const int op = slot_op[i];
-  const bool m = pred_mask(pk, slot_pred[i]);
-  const float v = field_value(pk, slot_field[i]);
-  const float mf = m ? 1.0f : 0.0f;
-  const float a = acc[i];
-  const int s = seen[i];
-
-  float out = a;
-  switch (op) {
-    case OP_COUNT: out = __fadd_rn(a, mf); break;
-    case OP_SUM: out = __fadd_rn(a, __fmul_rn(v, mf)); break;
-    case OP_SUMSQ: out = __fadd_rn(a, __fmul_rn(__fmul_rn(v, v), mf)); break;
-    case OP_MAX: if (m) out = nan_max(a, v); break;
-    case OP_MIN: if (m) out = nan_min(a, v); break;
-    case OP_FIRST: if (m && s == 0) out = v; break;  // the incoming seen
-    case OP_LAST: if (m) out = v; break;
-    default: break;
-  }
-  const int s2 = s | (m ? 1 : 0);
-  acc_out[i] = out;
-  seen_out[i] = s2;
-  if (FINALIZE) {
-    float r = out;
-    if (s2 == 0) {
-      if (op == OP_MAX || op == OP_FIRST || op == OP_LAST) r = 0.0f;
-      else if (op == OP_MIN) r = slot_init[i];
-    }
-    regs_out[i] = r;
-  }
+  float a = acc[i];
+  int s = seen[i];
+  fold_slot(op, pred_mask(pk, slot_pred[i]), field_value(pk, slot_field[i]),
+            a, s);
+  acc_out[i] = a;
+  seen_out[i] = s;
+  if (FINALIZE) regs_out[i] = finalize_slot(op, slot_init[i], a, s);
 }
 
 template <bool FINALIZE>

@@ -1,11 +1,11 @@
 // Packet-field predicates and slot selects shared by the feature kernels
-// (feature_window.cu, feature_update.cu).
+// (feature_window.cu, feature_update.cu, tick_step.cu).
 //
 // The codes mirror src/repro_torch/core/features.py.  Both kernels must
 // make the same per-packet decisions as the plain versions
 // `_pred_mask` / `_field_vals` in src/repro_torch/kernels/ref.py, so the
 // decisions live here once.  kernels/_build.py hashes every *.cuh in
-// this directory into the build key: an edit here rebuilds both kernels.
+// this directory into the build key: an edit here rebuilds every kernel.
 #pragma once
 
 #include <math.h>
@@ -17,7 +17,8 @@ constexpr int OP_COUNT = 1, OP_SUM = 2, OP_MAX = 3, OP_MIN = 4, OP_LAST = 5,
 constexpr int PRED_TRUE = 0, PRED_FWD = 1, PRED_BWD = 2, PRED_SYN = 3,
               PRED_ACK = 4, PRED_FIN = 5, PRED_RST = 6, PRED_PSH = 7,
               PRED_URG = 8;
-constexpr int PKT_DIR = 2, PKT_FLAGS = 3, PKT_VALID = 5, PKT_NFIELDS = 6;
+constexpr int PKT_DIR = 2, PKT_FLAGS = 3, PKT_IAT = 4, PKT_VALID = 5,
+              PKT_NFIELDS = 6;
 
 // Does packet `pk` (PKT_NFIELDS floats) match predicate code `pred`?
 // Invalid packets (valid <= 0) and unknown codes match nothing.

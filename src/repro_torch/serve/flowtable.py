@@ -13,10 +13,11 @@ module is the live analogue:
   a host-side spill store instead of being dropped.  Admission is one
   NumPy group-by over the tick's flow ids;
 * the **fused tick engine** (``kernels.tick_step``, the default) holds
-  ALL per-flow serving state on the device and runs one tick as one
-  stream of launches with no host sync: per packet rank the
-  fold-and-finalize kernel, then the hop of every completed window, then
-  the masked drain rounds.  The verdicts come back in one fetch;
+  ALL per-flow serving state on the device and runs one tick with no
+  host sync: on the card one launch of the tick kernel, which walks each
+  flow's packets of the tick in order (fold, hop at each window
+  boundary, drain of empty windows); on the CPU the plain rank loop.
+  The verdicts come back in one fetch;
 * the **legacy tick engine** (``tick_engine="legacy"``) folds one rank
   per call (the fold kernel through ``feature_update_at``) and hops one
   drain round per call, with a host fetch after each hop.  Both engines
@@ -39,7 +40,8 @@ one per legacy fold or hop, one per spill run.
 Execution knobs come from :class:`repro_torch.core.inference.EngineOptions`:
 ``impl=None`` is ``cuda`` on a CUDA engine and ``fused`` on a CPU one;
 ``fused`` runs the plain PyTorch versions, ``cuda`` the kernels (the
-fold kernels and the range-match kernel behind the SID dispatch);
+tick kernel in the fused engine; the fold kernel and the range-match
+kernel behind the SID dispatch in the legacy engine and the spill walk);
 ``block_b`` is the SID dispatch's block size.  Every route gives the
 verdicts of ``Engine.run`` on the offline windows, bit for bit: the flow
 table can only change *when* a verdict is computed, never its value.
@@ -672,30 +674,49 @@ class FlowTableServer:
         else:
             self._process_resident_legacy(slots, fids, pkts, out)
 
+    @staticmethod
+    def _pack_tick(slots: np.ndarray, pkts: np.ndarray, *, dummy: int,
+                   rank_floor: int) -> tuple[np.ndarray, np.ndarray]:
+        """Rank-major ``(R, C)`` slots and ``(R, C, F)`` packets of one
+        tick: column = the flow's group index, constant across ranks;
+        unused cells address the dummy row; both axes padded to the
+        power-of-two ladder.
+
+        Checks the tick kernel's precondition (``kernels.tick_step``):
+        every real slot sits in ONE column, alone there.
+        """
+        order, ss, grp_id, rank = FlowTableServer._rank_decompose(slots)
+        R = _pow2_cap(int(rank.max()) + 1, 1)
+        n_cols = int(grp_id[-1]) + 1
+        C = _pow2_cap(n_cols, rank_floor)
+        slots_rc = np.full((R, C), dummy, np.int32)
+        pkt_rc = np.zeros((R, C, PKT_NFIELDS), np.float32)
+        slots_rc[rank, grp_id] = ss
+        pkt_rc[rank, grp_id] = pkts[order]
+        head = slots_rc[0, :n_cols]
+        if np.unique(head).size != n_cols \
+                or not np.array_equal(ss, head[grp_id]):
+            raise RuntimeError("tick pack: a slot spans two columns or a "
+                               "column holds two slots")
+        return slots_rc, pkt_rc
+
     def _process_resident_fused(self, slots, pkts, out) -> None:
         """One launch stream for the whole tick, one fetch.
 
-        The tick's packets are packed rank-major into ``(R, C)`` arrays
-        (column = the flow's group index, constant across ranks; unused
-        cells address the dummy row), padded on both axes to the
-        power-of-two ladder.  The retired-flow guard, IAT window reset,
-        fold, completion hop and empty-window drain all run in
-        ``kernels.tick_step``.
+        The tick's packets are packed rank-major (:meth:`_pack_tick`).
+        The retired-flow guard, IAT window reset, fold, completion hop
+        and empty-window drain all run in ``kernels.tick_step``: one
+        launch of the tick kernel on the card.
         """
         with span("tick/pack"):
-            order, ss, grp_id, rank = self._rank_decompose(slots)
-            R = _pow2_cap(int(rank.max()) + 1, 1)
-            C = _pow2_cap(int(grp_id[-1]) + 1, self._rank_floor)
-            slots_rc = np.full((R, C), self._dummy, np.int32)
-            pkt_rc = np.zeros((R, C, PKT_NFIELDS), np.float32)
-            slots_rc[rank, grp_id] = ss
-            pkt_rc[rank, grp_id] = pkts[order]
-            self.last_tick_shape = (R, C)
+            slots_rc, pkt_rc = self._pack_tick(
+                slots, pkts, dummy=self._dummy, rank_floor=self._rank_floor)
+            self.last_tick_shape = slots_rc.shape
         with span("tick/dispatch"):
             _, res = _tick.tick_step(
                 self._tstate, self._to_device(slots_rc),
                 self._to_device(pkt_rc), self._dev, n_subtrees=self.S,
-                cuda=self._cuda, block_b=self._block_b)
+                cuda=self._cuda)
             self.stats.dispatches += 1
         with span("tick/fetch"):
             # ONE device->host transfer: mask, labels, recircs, exit

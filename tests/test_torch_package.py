@@ -129,20 +129,36 @@ def test_build_dir_hashes_shared_headers(tmp_path, monkeypatch):
     for f in _build.CSRC.iterdir():
         (csrc / f.name).write_bytes(f.read_bytes())
     monkeypatch.setattr(_build, "CSRC", csrc)
-    headers = sorted(csrc.glob("*.cuh"))
-    assert headers and "packet_fields.cuh" in [h.name for h in headers]
+    headers = sorted(h.name for h in csrc.glob("*.cuh"))
+    assert {"packet_fields.cuh", "fold.cuh"} <= set(headers)
     base = _build.build_dir()
     assert base == _build.build_dir()              # deterministic
-    header = csrc / "packet_fields.cuh"
-    header.write_bytes(header.read_bytes() + b"\n// edited\n")
-    edited = _build.build_dir()
-    assert edited != base and edited.parent == base.parent
+    for name in ("packet_fields.cuh", "fold.cuh"):
+        header = csrc / name
+        before = _build.build_dir()
+        header.write_bytes(header.read_bytes() + b"\n// edited\n")
+        edited = _build.build_dir()
+        assert edited != before and edited.parent == base.parent, name
     (csrc / "extra.cuh").write_text("#pragma once\n")
     assert _build.build_dir() != edited            # a new header counts
     src = csrc / "feature_update.cu"
     before = _build.build_dir()
     src.write_bytes(src.read_bytes() + b"\n")
     assert _build.build_dir() != before
+
+
+def test_build_sources_list_every_kernel():
+    """Every ``csrc/*.cu`` is built (the tick kernel among them), and
+    every source's shared headers are keyed."""
+    from repro_torch.kernels import _build
+    assert "tick_step.cu" in _build.SOURCES
+    assert sorted(_build.SOURCES) == sorted(
+        f.name for f in _build.CSRC.glob("*.cu"))
+    headers = {h.name for h in _build.CSRC.glob("*.cuh")}
+    for src in ("tick_step.cu", "feature_update.cu", "dt_traverse.cu"):
+        text = (_build.CSRC / src).read_text()
+        assert '#include "fold.cuh"' in text, src
+    assert "fold.cuh" in headers
 
 
 @pytest.fixture(scope="module")
@@ -213,6 +229,85 @@ def test_kernel_wrappers_refuse_cpu_tensors(tiny_model):
     assert feature_window.launches == 0 and dt_traverse.launches == 0
     assert feature_window.update_launches == 0
     assert feature_window.update_finalize_launches == 0
+
+
+def _tiny_tick(k: int, device="cpu"):
+    """A four-slot tick state admitted with 5-packet flows, a one-subtree
+    table of k slots, and one rank of packets."""
+    from repro_torch.kernels import tick_step as tk
+    from repro_torch.kernels.ops import DeviceTables
+    i32 = dict(dtype=torch.int32, device=device)
+    dev = DeviceTables(
+        torch.ones(1, k, **i32), torch.zeros(1, k, **i32),
+        torch.zeros(1, k, **i32), torch.zeros(1, k, device=device),
+        torch.zeros(1, k, 2, device=device), torch.zeros(1, 2, k, **i32),
+        torch.zeros(1, 2, k, **i32), torch.zeros(1, 2, **i32),
+        torch.ones(1, 2, **i32))
+    st = tk.init_tick_state(dev, 5, 3)
+    tk.admit_rows(st, torch.arange(4, **i32), torch.full((4,), 5, **i32),
+                  dev)
+    slots = torch.arange(4, **i32)[None]
+    pkt = torch.zeros(1, 4, F.PKT_NFIELDS, device=device)
+    return st, slots, pkt, dev
+
+
+def test_tick_step_kernel_refuses_cpu_tensors_and_wide_k():
+    """The tick kernel takes CUDA tensors only (``cuda=True`` never runs
+    the plain loop) and k up to ``K_MAX``; neither refusal launches."""
+    from repro_torch.kernels import tick_step as tk
+    before = tk.tick_launches
+    st, slots, pkt, dev = _tiny_tick(4)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.tick_step_kernel(st, slots, pkt, dev, n_subtrees=1)
+    with pytest.raises(ValueError, match="CUDA"):
+        tk.tick_step(st, slots, pkt, dev, n_subtrees=1, cuda=True)
+    st, slots, pkt, dev = _tiny_tick(tk.K_MAX + 1)
+    with pytest.raises(ValueError, match=f"1..{tk.K_MAX}"):
+        tk.tick_step_kernel(st, slots, pkt, dev, n_subtrees=1)
+    assert tk.tick_launches == before
+    # the plain loop takes the same wide state
+    _, (vm, *_rest) = tk.tick_step(st, slots, pkt, dev, n_subtrees=1,
+                                   cuda=False)
+    assert vm.shape == (4,) and int(vm.sum()) == 0
+
+
+def test_tick_pack_puts_each_slot_in_one_column():
+    """The fused server's pack, over random ticks: every real slot lies
+    in exactly ONE column and alone there (the tick kernel's
+    precondition), its packets in arrival order down the ranks; unused
+    cells hold the dummy slot and zero packets; both axes are powers of
+    two, the width at least the rank floor."""
+    from hypothesis import given, settings
+    from hypothesis import strategies as hs
+
+    from repro_torch.serve import FlowTableServer
+    dummy = 50
+
+    @settings(max_examples=60, deadline=None, derandomize=True)
+    @given(hs.lists(hs.integers(0, dummy - 1), min_size=1, max_size=300),
+           hs.sampled_from([1, 4, 64]))
+    def prop(slots, rank_floor):
+        slots = np.asarray(slots, np.int64)
+        pkts = np.repeat(np.arange(1, slots.size + 1, dtype=np.float32),
+                         F.PKT_NFIELDS).reshape(-1, F.PKT_NFIELDS)
+        slots_rc, pkt_rc = FlowTableServer._pack_tick(
+            slots, pkts, dummy=dummy, rank_floor=rank_floor)
+        R, C = slots_rc.shape
+        assert slots_rc.dtype == np.int32 and pkt_rc.shape == (R, C, 6)
+        assert R & (R - 1) == 0 and C & (C - 1) == 0 and C >= rank_floor
+        for s in np.unique(slots):
+            cols = np.nonzero((slots_rc == s).any(axis=0))[0]
+            assert cols.size == 1
+            col = slots_rc[:, cols[0]]
+            n = int(np.count_nonzero(slots == s))
+            assert (col[:n] == s).all() and (col[n:] == dummy).all()
+            np.testing.assert_array_equal(pkt_rc[:n, cols[0]],
+                                          pkts[slots == s])
+        pad = slots_rc == dummy
+        assert int((~pad).sum()) == slots.size
+        assert not pkt_rc[pad].any()
+
+    prop()
 
 
 def test_spans_nest_and_accumulate(monkeypatch):
@@ -422,45 +517,113 @@ def test_fold_kernels_equal_plain_on_card(card, C, k):
         assert torch.equal(a, b)
 
 
+def _serving_model(k: int = 4, n_flows: int = 600):
+    ds = make_dataset("d2", n_flows)
+    X = window_features(ds, 3)
+    pdt = train_partitioned_dt(X, ds.labels, partition_sizes=[2, 3, 2], k=k)
+    return ds, Engine.from_model(pdt)
+
+
+def _count_ticks(monkeypatch) -> list:
+    """Record the (R, C) of every ``tick_step`` call the server makes."""
+    from repro_torch.kernels import tick_step as tk
+    calls, orig = [], tk.tick_step
+
+    def counted(state, slots_rc, pkt_rc, dev, **kw):
+        calls.append(tuple(slots_rc.shape))
+        return orig(state, slots_rc, pkt_rc, dev, **kw)
+
+    monkeypatch.setattr(tk, "tick_step", counted)
+    return calls
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("tick_engine", ["fused", "legacy"])
-def test_cuda_server_equals_fused_server_on_card(card, tick_engine):
+def test_cuda_server_equals_fused_server_on_card(card, tick_engine,
+                                                 monkeypatch):
     """The kernel route and the plain route of the flow-table server give
     the same verdicts, call by call and row by row, and the same stats,
-    with spill and timeout eviction in play."""
+    with spill and timeout eviction in play.  The fused engine's kernel
+    route launches the tick kernel once per tick and no fold kernel."""
     from repro_torch.flows.synthetic import make_packet_stream
+    from repro_torch.kernels import tick_step as tk
     from repro_torch.serve import FlowTableServer
-    ds = make_dataset("d2", 600)
-    X = window_features(ds, 3)
-    pdt = train_partitioned_dt(X, ds.labels, partition_sizes=[2, 3, 2], k=4)
-    eng = Engine.from_model(pdt)
+    ds, eng = _serving_model()
     stream = make_packet_stream(ds, seed=3, concurrency=128.0)
+    ticks = _count_ticks(monkeypatch)
     out = {}
     for impl in ("cuda", "fused"):
         srv = FlowTableServer(eng, n_buckets=8, bucket_size=8,
                               timeout=0.005, tick_engine=tick_engine,
                               options=EngineOptions(impl=impl))
         before = (feature_window.update_launches,
-                  feature_window.update_finalize_launches)
+                  feature_window.update_finalize_launches, tk.tick_launches)
+        n_ticks = len(ticks)
         calls = [srv.ingest(b) for b in stream.ticks(1024)] + [srv.flush()]
         launched = (feature_window.update_launches - before[0],
-                    feature_window.update_finalize_launches - before[1])
-        out[impl] = (calls, srv.stats.as_dict(), launched)
-    cuda, cstats, claunch = out["cuda"]
-    fused, fstats, flaunch = out["fused"]
+                    feature_window.update_finalize_launches - before[1],
+                    tk.tick_launches - before[2])
+        out[impl] = (calls, srv.stats.as_dict(), launched,
+                     len(ticks) - n_ticks)
+    cuda, cstats, claunch, cticks = out["cuda"]
+    fused, fstats, flaunch, _ = out["fused"]
     assert len(cuda) == len(fused)
     for a, b in zip(cuda, fused):
         for name in ("flow_id", "labels", "recircs", "exit_partition"):
             np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
     assert cstats == fstats
     assert cstats["spilled"] > 0 and cstats["evicted"] > 0
-    assert flaunch == (0, 0)
-    assert claunch[0 if tick_engine == "legacy" else 1] > 0
+    assert flaunch == (0, 0, 0)
+    if tick_engine == "legacy":
+        assert claunch[0] > 0 and claunch[1:] == (0, 0)
+    else:
+        assert cticks > 0 and claunch == (0, 0, cticks)
 
 
-# ---------------------------------------------------------------------------
-# the LM slice: chunk_scan and RWKV6
-# ---------------------------------------------------------------------------
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [4, 1, 8])
+def test_tick_kernel_equals_rank_loop_on_card(card, k, monkeypatch):
+    """Every tick of a stream with spill and timeout eviction, served by
+    the kernel route: the tick kernel on the server's state equals the
+    plain rank loop on a clone of the same state, with ``torch.equal`` on
+    rows ``[:N]`` of every ``TickState`` field and on the five verdict
+    arrays, tick after tick (each tick starts from the kernel's state)."""
+    from repro_torch.flows.synthetic import make_packet_stream
+    from repro_torch.kernels import tick_step as tk
+    from repro_torch.serve import FlowTableServer
+    ds, eng = _serving_model(k)
+    assert eng.tables.dev.slot_op.shape[1] == k
+    orig, compared = tk.tick_step, []
+
+    def both(state, slots_rc, pkt_rc, dev, *, n_subtrees, cuda):
+        assert cuda
+        clone = tk.TickState(*(t.clone() for t in state))
+        _, want = orig(clone, slots_rc, pkt_rc, dev, n_subtrees=n_subtrees,
+                       cuda=False)
+        before = tk.tick_launches
+        got = orig(state, slots_rc, pkt_rc, dev, n_subtrees=n_subtrees,
+                   cuda=True)
+        torch.cuda.synchronize()
+        assert tk.tick_launches == before + 1
+        N = state.sid.shape[0] - 1
+        for name in tk.TickState._fields:
+            assert torch.equal(getattr(state, name)[:N],
+                               getattr(clone, name)[:N]), name
+        for i, (a, b) in enumerate(zip(got[1], want)):
+            assert torch.equal(a, b), i
+        compared.append(int(want[0].sum()))
+        return got
+
+    monkeypatch.setattr(tk, "tick_step", both)
+    srv = FlowTableServer(eng, n_buckets=8, bucket_size=8, timeout=0.005)
+    stream = make_packet_stream(ds, seed=3, concurrency=128.0)
+    for b in stream.ticks(1024):
+        srv.ingest(b)
+    srv.flush()
+    assert srv.stats.spilled > 0 and srv.stats.evicted > 0
+    assert len(compared) > 5 and sum(compared) > 0
+
+
 def _scan_inputs(device, BH: int, T: int, dk: int, dv: int, decays: str,
                  seed: int = 0):
     """q, k, v, decay, bonus, state made on ``device`` from a seed.

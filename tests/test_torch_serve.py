@@ -377,7 +377,7 @@ def test_tick_step_from_jax_state_matches_jax(serve_setup, jax_tick_call,
     st = tick_state_from_arrays(_state_arrays(jstate), device="cpu")
     got_state, got_v = t_tick.tick_step(
         st, *_torch(slots_rc, pkt_rc), eng.tables.dev, n_subtrees=S,
-        cuda=False, block_b=8)
+        cuda=False)
     N = jstate.sid.shape[0] - 1                    # the dummy row
     _assert_state_equal(got_state, want_state, rows=slice(0, N))
     _assert_all_equal(got_v, want_v)
@@ -395,7 +395,7 @@ def test_tick_step_on_cpu_refuses_nothing_and_launches_nothing(serve_setup):
     pkt[..., F.PKT_VALID] = 1.0
     _, (vm, vl, vr, ve, rec) = t_tick.tick_step(
         st, slots, pkt, eng.tables.dev, n_subtrees=eng.tables.n_subtrees,
-        cuda=False, block_b=8)
+        cuda=False)
     assert int(vm.sum()) == 8                      # every flow completed
     assert all(v.dtype == torch.int32 and v.shape == (8,)
                for v in (vm, vl, vr, ve, rec))
@@ -522,30 +522,21 @@ def _whole_flows(tr, package, sel, t0=0.0, extra_tail=0):
                   t0 + np.arange(fid.size, dtype=np.float64))
 
 
-@pytest.mark.parametrize("tick_engine", ["fused", "legacy"])
-def test_server_recycled_slots_rank_floor_1_match_jax(serve_setup,
-                                                      tick_engine):
+def _recycled_slots(tr):
     """A capacity-1 table fed whole flows with ``rank_floor=1``: each
     tick completes its resident flow mid-tick (the deepest rank chain),
     frees the slot for the next tick's flow, and spills the companion."""
-    jeng, eng, tr, _ = serve_setup
-
     def script(srv, package):
         for i in range(0, 16, 2):
             yield srv.ingest(_whole_flows(tr, package, (i, i + 1),
                                           t0=1e3 * i))
         yield srv.flush()
-
-    srv, _ = _run_both(jeng, eng, tick_engine, script, n_buckets=1,
-                       bucket_size=1, rank_floor=1)
-    assert srv.stats.spilled > 0
+    return dict(n_buckets=1, bucket_size=1, rank_floor=1), script
 
 
-@pytest.mark.parametrize("tick_engine", ["fused", "legacy"])
-def test_server_interleaved_boundary_hops_match_jax(serve_setup, tick_engine):
+def _interleaved_boundaries(tr):
     """16 flows round-robin in ONE tick: every window boundary, hop and
     drain round lands mid-tick, many flows completing in the same rank."""
-    jeng, eng, tr, _ = serve_setup
     sel = list(range(40, 56))
     rows = [(i, j) for j in range(max(int(tr.lengths[i]) for i in sel))
             for i in sel if j < int(tr.lengths[i])]
@@ -557,16 +548,13 @@ def test_server_interleaved_boundary_hops_match_jax(serve_setup, tick_engine):
                                 tr.lengths[fid].astype(np.int32), pkts,
                                 np.arange(fid.size, dtype=np.float64)))
         yield srv.flush()
+    return dict(n_buckets=4, bucket_size=4), script
 
-    _run_both(jeng, eng, tick_engine, script, n_buckets=4, bucket_size=4)
 
-
-@pytest.mark.parametrize("tick_engine", ["fused", "legacy"])
-def test_server_late_packets_and_timeout_match_jax(serve_setup, tick_engine):
+def _late_packets(tr):
     """Late duplicates of a completed flow in the same tick and in the
     next one must not fold into the slot's next tenant; then a tick far
     later evicts every idle flow on a timeout."""
-    jeng, eng, tr, _ = serve_setup
     a, b = 3, 5
 
     def script(srv, package):
@@ -584,10 +572,247 @@ def test_server_late_packets_and_timeout_match_jax(serve_setup, tick_engine):
         yield srv.ingest(stream.slice(stream.n_packets - 8,
                                       stream.n_packets))
         yield srv.flush()
+    return dict(n_buckets=1, bucket_size=1, timeout=1.0), script
 
-    srv, got = _run_both(jeng, eng, tick_engine, script, n_buckets=1,
-                         bucket_size=1, timeout=1.0)
+
+def _short_flows(tr):
+    """Flows of 1 and 2 packets (fewer than P = 3): their trailing
+    windows are empty, so every one drains inside the tick that brings
+    its last packet; some arrive interleaved with two full flows."""
+    sel = list(range(60, 76))
+    flen = {i: 1 + i % 2 for i in sel}
+    flen.update({80: int(tr.lengths[80]), 81: int(tr.lengths[81])})
+    order = sorted(flen)
+    rows = [(i, j) for j in range(max(flen.values())) for i in order
+            if j < flen[i]]
+    fid = np.asarray([i for i, _ in rows], np.int64)
+    pkts = np.asarray([tr.packets[i, j] for i, j in rows], np.float32)
+    lens = np.asarray([flen[i] for i in fid], np.int32)
+
+    def script(srv, package):
+        half = fid.size // 2
+        for lo, hi in ((0, half), (half, fid.size)):
+            yield srv.ingest(_batch(package, fid[lo:hi], lens[lo:hi],
+                                    pkts[lo:hi],
+                                    np.arange(lo, hi, dtype=np.float64)))
+        yield srv.flush()
+    return dict(n_buckets=8, bucket_size=4), script
+
+
+@pytest.mark.parametrize("tick_engine", ["fused", "legacy"])
+def test_server_recycled_slots_rank_floor_1_match_jax(serve_setup,
+                                                      tick_engine):
+    """See :func:`_recycled_slots`."""
+    jeng, eng, tr, _ = serve_setup
+    knobs, script = _recycled_slots(tr)
+    srv, _ = _run_both(jeng, eng, tick_engine, script, **knobs)
+    assert srv.stats.spilled > 0
+
+
+@pytest.mark.parametrize("tick_engine", ["fused", "legacy"])
+def test_server_interleaved_boundary_hops_match_jax(serve_setup, tick_engine):
+    """See :func:`_interleaved_boundaries`."""
+    jeng, eng, tr, _ = serve_setup
+    knobs, script = _interleaved_boundaries(tr)
+    _run_both(jeng, eng, tick_engine, script, **knobs)
+
+
+@pytest.mark.parametrize("tick_engine", ["fused", "legacy"])
+def test_server_late_packets_and_timeout_match_jax(serve_setup, tick_engine):
+    """See :func:`_late_packets`."""
+    jeng, eng, tr, _ = serve_setup
+    knobs, script = _late_packets(tr)
+    srv, got = _run_both(jeng, eng, tick_engine, script, **knobs)
     assert got[0].n_flows == 1 and srv.stats.evicted > 0
+
+
+@pytest.mark.parametrize("tick_engine", ["fused", "legacy"])
+def test_server_short_flows_match_jax(serve_setup, tick_engine):
+    """See :func:`_short_flows`."""
+    jeng, eng, tr, _ = serve_setup
+    knobs, script = _short_flows(tr)
+    _, got = _run_both(jeng, eng, tick_engine, script, **knobs)
+    v = StreamVerdicts.concat(got)
+    assert v.n_flows == 18 and sum(c.n_flows for c in got[:2]) == 18
+
+
+# ---------------------------------------------------------------------------
+# the tick kernel's control flow, column by column, against JAX
+# ---------------------------------------------------------------------------
+_F32 = np.float32
+
+
+def _fold_slot(op, m: bool, v, acc, seen: int):
+    """``csrc/fold.cuh`` fold_slot on numpy f32 scalars (each product and
+    sum rounded to f32, as __fmul_rn/__fadd_rn)."""
+    mf = _F32(1.0) if m else _F32(0.0)
+    if op == F.OP_COUNT:
+        acc = _F32(acc + mf)
+    elif op == F.OP_SUM:
+        acc = _F32(acc + _F32(v * mf))
+    elif op == F.OP_SUMSQ:
+        acc = _F32(acc + _F32(_F32(v * v) * mf))
+    elif op == F.OP_MAX and m:
+        acc = np.maximum(acc, v)
+    elif op == F.OP_MIN and m:
+        acc = np.minimum(acc, v)
+    elif op == F.OP_FIRST and m and seen == 0:
+        acc = v
+    elif op == F.OP_LAST and m:
+        acc = v
+    return acc, seen | int(m)
+
+
+def _pred(pk, pred: int) -> bool:
+    if not pk[F.PKT_VALID] > 0:
+        return False
+    flags = int(pk[F.PKT_FLAGS])
+    bits = dict(F.PRED_FLAGS)
+    if pred == F.PRED_TRUE:
+        return True
+    if pred == F.PRED_FWD:
+        return pk[F.PKT_DIR] == 0
+    if pred == F.PRED_BWD:
+        return pk[F.PKT_DIR] == 1
+    return pred in bits and (flags & bits[pred]) > 0
+
+
+def _walk_hop(st, slot, dev, verdicts, n_subtrees):
+    """Finalize, range-match and hop one slot (``Flow::hop``); returns
+    whether it advanced into an empty window."""
+    vm, vl, vr, ve = verdicts
+    P = st["bounds"].shape[1]
+    s = st["sid"][slot]                  # -1 reads the last row, as in C
+    op, init = dev["slot_op"][s], dev["slot_init"][s]
+    regs = [_F32(0.0) if st["seen"][slot, j] == 0 and op[j] in (
+                F.OP_MAX, F.OP_FIRST, F.OP_LAST)
+            else init[j] if st["seen"][slot, j] == 0 and op[j] == F.OP_MIN
+            else st["acc"][slot, j] for j in range(op.size)]
+    marks = [int((r > dev["thresholds"][s, j]).sum())
+             for j, r in enumerate(regs)]
+    action = -1
+    for leaf in range(dev["leaf_lo"].shape[1]):
+        if dev["leaf_valid"][s, leaf] > 0 and all(
+                dev["leaf_lo"][s, leaf, j] <= m <= dev["leaf_hi"][s, leaf, j]
+                for j, m in enumerate(marks)):
+            action = int(dev["leaf_action"][s, leaf])
+            break
+    adv = False
+    if action >= n_subtrees:
+        vm[slot], vl[slot] = 1, action - n_subtrees
+        vr[slot], ve[slot] = st["recircs"][slot], st["part"][slot]
+        st["retired"][slot] = 1
+    else:
+        st["recircs"][slot] += 1
+        st["sid"][slot] = action
+        if st["part"][slot] == P - 1:
+            vm[slot], vl[slot] = 1, -1
+            vr[slot], ve[slot] = st["recircs"][slot], -1
+            st["retired"][slot] = 1
+        else:
+            adv = True
+            st["part"][slot] += 1
+            st["win_lo"][slot], st["win_hi"][slot] = \
+                st["bounds"][slot, st["part"][slot]]
+    new_op = dev["slot_op"][st["sid"][slot]]
+    st["acc"][slot] = np.where(new_op == F.OP_MIN, np.inf, np.where(
+        new_op == F.OP_MAX, -np.inf, 0.0)).astype(np.float32)
+    st["seen"][slot] = 0
+    return adv and st["win_lo"][slot] == st["win_hi"][slot]
+
+
+def _walk_tick(st: dict, slots_rc, pkt_rc, dev: dict, n_subtrees: int):
+    """One tick the way ``csrc/tick_step.cu`` walks it: one column at a
+    time, its ranks in order, each hop and drain round inline.  Updates
+    the numpy state ``st`` in place; returns the four verdict buffers."""
+    N1 = st["sid"].shape[0]
+    dummy, P = N1 - 1, st["bounds"].shape[1]
+    verdicts = (np.zeros(N1, np.int32), np.full(N1, -1, np.int32),
+                np.zeros(N1, np.int32), np.full(N1, -1, np.int32))
+    R, C = slots_rc.shape
+    with np.errstate(all="ignore"):      # inf * 0 is NaN, as on the card
+        for c in range(C):
+            for r in range(R):
+                slot = int(slots_rc[r, c])
+                if slot == dummy or st["retired"][slot]:
+                    continue
+                pk = pkt_rc[r, c].copy()
+                if st["pkts_seen"][slot] == st["win_lo"][slot]:
+                    pk[F.PKT_IAT] = 0.0
+                s = st["sid"][slot]
+                for j in range(st["acc"].shape[1]):
+                    f = dev["slot_field"][s, j]
+                    v = pk[f] if 0 <= f < F.PKT_NFIELDS else _F32(0.0)
+                    st["acc"][slot, j], st["seen"][slot, j] = _fold_slot(
+                        dev["slot_op"][s, j],
+                        _pred(pk, dev["slot_pred"][s, j]), v,
+                        st["acc"][slot, j], st["seen"][slot, j])
+                st["pkts_seen"][slot] += 1
+                if st["pkts_seen"][slot] != st["win_hi"][slot]:
+                    continue
+                again = _walk_hop(st, slot, dev, verdicts, n_subtrees)
+                for _ in range(P):
+                    if not again:
+                        break
+                    again = _walk_hop(st, slot, dev, verdicts, n_subtrees)
+    return verdicts
+
+
+def _record_jax_ticks(jeng, script, **knobs):
+    """Every fused tick the JAX server runs under ``script``: its input
+    state, its rank-major packing and its outputs."""
+    calls = []
+    orig = j_tick.tick_step
+
+    def record(state, slots_rc, pkt_rc, dev, **kw):
+        out = orig(state, slots_rc, pkt_rc, dev, **kw)
+        calls.append((state, np.asarray(slots_rc), np.asarray(pkt_rc), out))
+        return out
+
+    srv = JServer(jeng, tick_engine="fused", options=JOptions(impl="fused"),
+                  **knobs)
+    j_tick.tick_step = record
+    try:
+        for _ in script(srv, "jax"):
+            pass
+    finally:
+        j_tick.tick_step = orig
+    return calls
+
+
+@pytest.mark.parametrize("case", ["mid_stream", "late_packets",
+                                  "recycled_slots", "interleaved_boundaries",
+                                  "short_flows"])
+def test_column_walker_matches_jax_tick_step(serve_setup, jax_tick_call,
+                                             case):
+    """The tick kernel's control flow, walked on the CPU one column at a
+    time (ranks in order, drain inline, the row math on f32 scalars),
+    equals the JAX ``tick_step`` on every recorded tick: rows ``[:N]`` of
+    every state field and the five verdict arrays, at zero tolerance."""
+    jeng, _, tr, _ = serve_setup
+    if case == "mid_stream":
+        call, S = jax_tick_call
+        calls = [call]
+    else:
+        knobs, script = globals()["_" + case](tr)
+        calls = _record_jax_ticks(jeng, script, **knobs)
+        S = jeng.ret.n_subtrees
+    dev = {n: np.asarray(getattr(jeng.dev, n)) for n in jeng.dev._fields}
+    assert calls
+    for i, (jstate, slots_rc, pkt_rc, (want_state, want_v)) in \
+            enumerate(calls):
+        st = {n: a.copy() for n, a in _state_arrays(jstate).items()}
+        N = st["sid"].shape[0] - 1
+        vm, vl, vr, ve = _walk_tick(st, slots_rc, pkt_rc, dev, S)
+        for name in t_tick.TickState._fields:
+            np.testing.assert_array_equal(
+                st[name][:N], np.asarray(getattr(want_state, name))[:N],
+                err_msg=f"tick {i}: {name}")
+        for j, (g, w) in enumerate(zip(
+                (vm[:N], vl[:N], vr[:N], ve[:N], st["recircs"][:N]),
+                want_v)):
+            np.testing.assert_array_equal(g, np.asarray(w),
+                                          err_msg=f"tick {i}: verdict {j}")
 
 
 def test_streamed_verdicts_equal_engine_run(serve_setup):
