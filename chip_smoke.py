@@ -8,21 +8,28 @@ exits nonzero; nothing is caught and passed over):
 
 1. device  -- ``nvidia-smi`` name and power limit, and the time to build
    every CUDA kernel from ``src/repro_torch/csrc`` with ``nvcc`` (one
-   process per source, all at once);
+   process per source, all at once); registers, stack and spills of the
+   hop kernel, kernel A and each tick-kernel instantiation;
 2. main    -- ``make_dataset("d2", 6000)`` -> ``window_features`` (kernel A,
    one launch per window and batch of flows)
    -> ``train_partitioned_dt([3, 3, 3], k=4)`` -> ``window_packets`` of the
    test split tiled to 2^20 flows -> ``Engine.from_model(pdt).run`` on the
-   card (kernels A and B).  Verdicts must equal ``np.tile`` of the numpy
-   oracle ``pdt.predict`` on the untiled test windows, and both kernels
-   must have launched (launch counts zeroed just before, read just after);
+   card (the hop kernel, one launch per partition; no launch of kernel A
+   or B).  Verdicts must equal ``np.tile`` of the numpy oracle
+   ``pdt.predict`` on the untiled test windows, and the counts (zeroed
+   just before, read just after) must show the launches;
 3. check   -- each kernel against its plain PyTorch version on the card at
-   the main path's shapes, and the engine's ``cuda`` walk against its
-   ``fused`` walk, all with ``torch.equal`` (zero tolerance);
+   the main path's shapes (the hop kernel against ``engine_hop_ref`` on
+   every hop of a walk from random SIDs, -1 among them, with done flows;
+   kernel A at both of its shapes), and the engine's ``cuda`` walk against
+   its ``fused`` walk, all with ``torch.equal`` (zero tolerance);
 4. times   -- CUDA-event medians of each kernel and its plain version beside
    the least time the card could take (bytes over 3.35 TB/s), and
-   ``Engine.run`` flows/s from numpy and from a device-resident tensor;
-   then ``profile``, one traced ``Engine.run``;
+   ``Engine.run`` flows/s from numpy, from a device-resident tensor and
+   from one without the trace, beside the two-kernel walk it replaced
+   (kernel A, the SID dispatch and kernel B a hop) and the fetch alone;
+   then ``profile``, one traced ``Engine.run`` of each walk with its
+   device-kernel count;
 5. serve   -- live serving, the second path: ``make_dataset("d2", 2^17,
    seed=1)`` streamed by ``make_packet_stream(profile="steady",
    concurrency=65536)`` in ticks of 32,768 packets through
@@ -37,10 +44,12 @@ exits nonzero; nothing is caught and passed over):
    serving rank width and at a width that is no multiple of a block; the
    tick kernel against its plain version (the rank loop, on a clone of
    the same state) on every tick of a 4,096-flow prefix with a 512-slot
-   table (spill) and a timeout, and on the 8 main-stream ticks up to the
-   traced one: every ``TickState`` field and verdict array; on that
-   prefix the ``cuda`` server against the ``fused`` server for both tick
-   engines: every verdict in order and every stats field;
+   table (spill) and a timeout, on the 8 main-stream ticks up to the
+   traced one, and on every tick of small streams served by k = 9 and
+   k = 41 models (the tick kernel's capacity instantiations): every
+   ``TickState`` field and verdict array; on that prefix the ``cuda``
+   server against the ``fused`` server for both tick engines: every
+   verdict in order and every stats field;
 7. serve_times -- the tick kernel's device time at the steady-state
    tick's (R, C) (graph replay of restore-and-call less the restore),
    its call time, the rank loop's time; kernel B bare and behind the SID
@@ -113,6 +122,10 @@ CHECK_TIMEOUT = 0.05      # stream seconds; evicts some idle flows (a
 #                           shorter one evicts so many that none spill)
 CHECK_TICK = 4096
 MAIN_TICKS_CHECKED = 8    # main-stream ticks held against the rank loop
+WIDE_K = (9, 41)          # models past the tick kernel's register templates
+WIDE_FLOWS = 1024         # flows of each such stream
+WIDE_TABLE = (16, 8)      # 128 slots: the stream spills
+WIDE_CONCURRENCY = 512.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 TF32_OPS_PER_S = 494.7e12  # H100 SXM TF32 tensor cores, dense
@@ -263,8 +276,12 @@ def profile_run(fn, top: int = 12, warmup: bool = True,
               and not (ranges and e.key.startswith(ranges))]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    copies = ("Memcpy", "Memset")
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_event_kinds": len(events),
+           # device kernels launched, copies and fills left out
+           "device_kernels": sum(e.count for e in events
+                                 if not e.key.startswith(copies)),
            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
            "top": [{"name": e.key[:80], "calls": e.count,
                     "device_ms": e.self_device_time_total / 1e3}
@@ -409,6 +426,33 @@ def chunk_scan_resources(out_dir: pathlib.Path) -> dict:
             res[name]["registers"] = int(m.group(1))
             s = re.search(r"(\d+) bytes smem", ln)
             res[name]["static_smem_bytes"] = int(s.group(1)) if s else 0
+    return res
+
+
+def kernel_resources(out_dir: pathlib.Path, stem: str) -> dict:
+    """Registers, stack and spills of each kernel of one source, from
+    nvcc's ``-Xptxas -v`` log beside its library; a tick-kernel
+    instantiation is named by its capacity and whether k equals it."""
+    import re
+    res, name = {}, None
+    for ln in (out_dir / f"{stem}.log").read_text().splitlines():
+        # the name follows its length in the mangled symbol
+        m = re.search(r"Compiling entry function '\S*?\d([a-z_]+_kernel)"
+                      r"(?:ILi(\d+)ELb([01])E)?", ln)
+        if m:
+            name = m.group(1)
+            if m.group(2):
+                name += (f"<{m.group(2)}, "
+                         f"{'exact' if m.group(3) == '1' else 'capacity'}>")
+            res[name] = {}
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m and name:
+            res[name].update(stack_bytes=int(m.group(1)),
+                             spill_bytes=int(m.group(2)) + int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            res[name]["registers"] = int(m.group(1))
     return res
 
 
@@ -779,7 +823,9 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
-    from repro_torch.core.inference import Engine, EngineOptions
+    from repro_torch.core.inference import (
+        Engine, EngineOptions, WalkBackend, fetch, partition_walk, step_hop,
+    )
     from repro_torch.core.partition import train_partitioned_dt
     from repro_torch.core.tree import macro_f1
     from repro_torch.flows.synthetic import (
@@ -789,7 +835,8 @@ def main() -> int:
     from repro_torch.flows.windows import (
         _all_feature_rows, window_features, window_packets,
     )
-    from repro_torch.kernels import _build, dispatch, dt_traverse, ref
+    from repro_torch.kernels import _build, dispatch, dt_traverse, ops, ref
+    from repro_torch.kernels import engine_hop as eh
     from repro_torch.kernels import feature_window as fw
     from repro_torch.kernels import tick_step as tk
     from repro_torch.obs import reset_spans, span_totals
@@ -810,10 +857,12 @@ def main() -> int:
              if "registers" in ln or "spill" in ln]
     emit("device", nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, kind=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count(), build_s=build_s, ptxas=ptxas)
+         count=torch.cuda.device_count(), build_s=build_s, ptxas=ptxas,
+         resources={stem: kernel_resources(out_dir, stem) for stem in (
+             "engine_hop", "feature_window", "tick_step")})
 
     # -- 2. the main path, through the public entry points ------------------
-    fw.launches = dt_traverse.launches = 0
+    fw.launches = dt_traverse.launches = eh.launches = 0
     t0 = time.perf_counter()
     ds = make_dataset("d2", 6000)
     tr, te = ds.split()
@@ -831,11 +880,12 @@ def main() -> int:
           f"window_features: one launch per window and flow batch, got "
           f"{fw_setup}")
     t0 = time.perf_counter()
-    res = eng.run(wp)                                   # kernels A and B
+    res = eng.run(wp)                                   # the hop kernel
     run_s = time.perf_counter() - t0
-    launches = {"feature_window": fw.launches,
+    launches = {"engine_hop": eh.launches, "feature_window": fw.launches,
                 "dt_traverse": dt_traverse.launches}
-    run_launches = {"feature_window": fw.launches - fw_setup,
+    run_launches = {"engine_hop": eh.launches,
+                    "feature_window": fw.launches - fw_setup,
                     "dt_traverse": dt_traverse.launches}
     S, k, T = eng.tables.dev.thresholds.shape
     L = eng.tables.dev.leaf_lo.shape[1]
@@ -853,9 +903,10 @@ def main() -> int:
     check(len(res.regs_trace) == P and all(
         r.shape == (B_MAIN, k) and np.isfinite(r).all()
         for r in res.regs_trace), "register trace shape and finiteness")
-    check(run_launches["feature_window"] == P
-          and run_launches["dt_traverse"] == P,
-          f"one launch of each kernel per hop, got {run_launches}")
+    check(run_launches == {"engine_hop": P, "feature_window": 0,
+                           "dt_traverse": 0},
+          f"one hop-kernel launch per hop and no launch of kernel A or B, "
+          f"got {run_launches}")
     f1 = macro_f1(tile(te.labels), res.labels, ds.n_classes)
     emit("main", n_train=tr.n_flows, n_test=te.n_flows, B=B_MAIN, P=P, W=W,
          S=S, k=k, T=T, L=L, launches=launches,
@@ -914,6 +965,36 @@ def main() -> int:
                             dev.leaf_hi[s], dev.leaf_action[s],
                             dev.leaf_valid[s] > 0)))
 
+    # the hop kernel against engine_hop_ref on every hop of a walk from
+    # random SIDs (-1 among them) with a third of the flows done; the
+    # kernel updates its copy of the carry in place
+    n_sub = eng.tables.n_subtrees
+    done0 = torch.rand(B_MAIN, generator=g, device=card) < 0.3
+    carry0 = (torch.randint(-1, S, (B_MAIN,), generator=g, device=card,
+                            dtype=torch.int32), done0,
+              torch.where(done0, 0, -1).to(torch.int32),
+              torch.zeros(B_MAIN, dtype=torch.int32, device=card),
+              torch.where(done0, 0, -1).to(torch.int32))
+    got_c, want_c = tuple(t.clone() for t in carry0), carry0
+    err_hop = 0.0
+    for p in range(P):
+        regs_k = torch.empty(B_MAIN, k, device=card)
+        eh.engine_hop_kernel(x[:, p], got_c, dev, p, n_subtrees=n_sub,
+                             regs_out=regs_k)
+        want_c, regs_w = ref.engine_hop_ref(x[:, p], want_c, dev, p, n_sub)
+        err_hop = max(err_hop, compare(f"engine_hop[hop {p}].regs", regs_k,
+                                       regs_w))
+        for name, a, b in zip(("sid", "done", "labels", "recircs",
+                               "exit_p"), got_c, want_c):
+            compare(f"engine_hop[hop {p}].{name}", a, b)
+    hop_walk = {"sid_minus_one": int((carry0[0] == -1).sum()),
+                "done_before": int(done0.sum()),
+                "done_after": int(want_c[1].sum()),
+                "recirculations": int(want_c[3].sum())}
+    check(hop_walk["sid_minus_one"] > 0
+          and hop_walk["done_after"] > hop_walk["done_before"],
+          f"the checked walk reads row S - 1 and exits flows: {hop_walk}")
+
     fused = eng.run(x, options=EngineOptions(impl="fused"))
     cuda = eng.run(x, options=EngineOptions(impl="cuda"))
     for name in ("labels", "recircs", "exit_partition"):
@@ -923,7 +1004,8 @@ def main() -> int:
         check(np.array_equal(a, b), f"engine cuda == fused: regs hop {p}")
     checks["engine[cuda==fused,B=2^20]"] = {"equal": True,
                                              "max_abs_err": 0.0}
-    emit("check", tolerance="zero: torch.equal", comparisons=checks)
+    emit("check", tolerance="zero: torch.equal", comparisons=checks,
+         hop_walk=hop_walk)
 
     # -- 4. times -------------------------------------------------------------
     ms_a = cuda_ms(lambda: fw.feature_window_kernel(*a_args))
@@ -944,7 +1026,38 @@ def main() -> int:
         return bound_ms(n_bytes, n_ops)
 
     bound_a, by_a = fw_bound(B_MAIN, W, k)
-    bound_a41, _ = fw_bound(tr.n_flows, xtr.shape[2], 41)
+    bound_a41, by_a41 = fw_bound(tr.n_flows, xtr.shape[2], 41)
+
+    # the hop kernel at hop 1 of the main path, writing its trace row; the
+    # carry is restored from carry0 before each call, outside the events
+    work_c = tuple(t.clone() for t in carry0)
+    regs_h = torch.empty(B_MAIN, k, device=card)
+
+    def restore_carry():
+        for dst, src in zip(work_c, carry0):
+            dst.copy_(src)
+
+    def hop_call():
+        eh.engine_hop_kernel(x[:, 1], work_c, dev, 1, n_subtrees=n_sub,
+                             regs_out=regs_h)
+
+    ms_hop = cuda_ms_after(restore_carry, hop_call)
+    # a yardstick, no port of anything: one PyTorch reduction that reads
+    # the same strided hop view once (what the view's layout lets a read
+    # reach on this card)
+    view_read_ms = cuda_ms(lambda: x[:, 1].sum())
+    plain_hop = cuda_ms(lambda: ref.engine_hop_ref(x[:, 1], carry0, dev, 1,
+                                                   n_sub))
+    # least traffic: the windows, the carry (sid, done, labels, recircs,
+    # exit_p: 17 bytes a flow) read once and written once, the registers
+    # written, the tables read; operations: the window walk's 3 f32
+    # multiplies and 3 adds a packet and slot, and the match's k*T + 2*L*k
+    # compares a flow
+    table_bytes = sum(t.numel() * t.element_size() for t in dev)
+    hop_bytes = (B_MAIN * W * 6 * 4 + B_MAIN * 17 * 2 + B_MAIN * k * 4
+                 + table_bytes)
+    hop_ops = B_MAIN * k * W * 6 + B_MAIN * (k * T + 2 * L * k)
+    bound_hop, by_hop = bound_ms(hop_bytes, hop_ops)
     nb = d.block_sid.shape[0]
     b_bytes = (nb * 4 + nb * bb * k * 4 + nb * bb * 4
                + sum(t.numel() * 4 for t in dev[4:]))
@@ -961,7 +1074,28 @@ def main() -> int:
                                reps=10)
     run_fused_s = host_s(lambda: eng.run(
         x, options=EngineOptions(impl="fused")), reps=3)
+    # the two-kernel walk the hop kernel replaced (kernel A on SID-gathered
+    # slot rows, the SID dispatch, kernel B, then the bookkeeping), behind
+    # the same fetch; then each walk on the device alone and the fetch
+    two_kernel = WalkBackend(name="two-kernel",
+                             hop=step_hop(ops.cuda_step(bb)))
+    old_dev_s = host_s(lambda: two_kernel.run(eng, x), reps=10)
+    old_dev_notrace_s = host_s(lambda: two_kernel.run(eng, x,
+                                                      with_trace=False),
+                               reps=10)
+    walk_kw = dict(n_subtrees=n_sub, n_partitions=P, with_trace=True)
+    walk_ms = cuda_ms(lambda: partition_walk(x, dev, hop=eh.engine_hop_kernel,
+                                             **walk_kw))
+    old_walk_ms = cuda_ms(lambda: partition_walk(
+        x, dev, hop=step_hop(ops.cuda_step(bb)), **walk_kw))
+    buf = partition_walk(x, dev, hop=eh.engine_hop_kernel, **walk_kw)
+    fetch_ms = host_s(lambda: fetch(buf), reps=10) * 1e3
+    pageable_ms = host_s(lambda: buf.cpu().numpy(), reps=10) * 1e3
     emit("times", card=smi,
+         engine_hop_ms=ms_hop, engine_hop_plain_ms=plain_hop,
+         engine_hop_bound_ms=bound_hop, engine_hop_bound_by=by_hop,
+         engine_hop_bytes=hop_bytes, engine_hop_ops=hop_ops,
+         hop_view_read_ms=view_read_ms,
          feature_window_ms=ms_a, feature_window_plain_ms=plain_a,
          feature_window_bound_ms=bound_a,
          feature_window_k41_ms=ms_a41, feature_window_k41_plain_ms=plain_a41,
@@ -973,11 +1107,18 @@ def main() -> int:
          engine_run_from_device_s=run_dev_s,
          engine_flows_per_s_from_device=B_MAIN / run_dev_s,
          engine_run_from_device_no_trace_s=run_dev_notrace_s,
+         two_kernel_run_from_device_s=old_dev_s,
+         two_kernel_run_from_device_no_trace_s=old_dev_notrace_s,
+         walk_device_ms=walk_ms, two_kernel_walk_device_ms=old_walk_ms,
+         fetch_bytes=buf.numel() * 4, fetch_pinned_ms=fetch_ms,
+         fetch_pageable_ms=pageable_ms,
          engine_fused_from_device_s=run_fused_s,
          engine_fused_flows_per_s_from_device=B_MAIN / run_fused_s,
          peak_memory_allocated_gb=peak_gb,
          engine_run_from_numpy_peak_above_held_gb=run_peak_gb)
-    emit("profile", card=smi, **profile_run(lambda: eng.run(x)))
+    del buf
+    emit("profile", card=smi, hop_walk=profile_run(lambda: eng.run(x)),
+         two_kernel_walk=profile_run(lambda: two_kernel.run(eng, x)))
 
     # -- 5. live serving through the flow table ------------------------------
     t0 = time.perf_counter()
@@ -994,7 +1135,7 @@ def main() -> int:
     calls, tick_s, tick_dispatches, shapes = [], [], [], []
     torch.cuda.synchronize()
     fw.launches = fw.update_launches = fw.update_finalize_launches = 0
-    dt_traverse.launches = tk.tick_launches = 0
+    dt_traverse.launches = tk.tick_launches = eh.launches = 0
     reset_spans()
     for i, batch in enumerate(ticks):
         d0 = srv.stats.dispatches
@@ -1022,13 +1163,15 @@ def main() -> int:
                       "feature_update_finalize": fw.update_finalize_launches,
                       "dt_traverse": dt_traverse.launches,
                       "feature_update": fw.update_launches,
-                      "feature_window": fw.launches}
+                      "feature_window": fw.launches,
+                      "engine_hop": eh.launches}
     # no flow spills in this stream, so every tick folds resident flows:
-    # one fused tick each, and no batch walk (kernels A and B) runs
+    # one fused tick each, and no batch walk (the hop kernel) runs
     check(srv.stats.spilled == 0, "the serving stream spills no flow")
     check(serve_launches == {"tick_step": len(ticks),
                              "feature_update_finalize": 0, "dt_traverse": 0,
-                             "feature_update": 0, "feature_window": 0},
+                             "feature_update": 0, "feature_window": 0,
+                             "engine_hop": 0},
           f"one tick kernel launch per fused tick and no other serving "
           f"kernel, got {serve_launches} over {len(ticks)} ticks")
     v = StreamVerdicts.concat(calls)
@@ -1120,7 +1263,7 @@ def main() -> int:
         runs = {}
         for impl in ("cuda", "fused"):
             fw.update_launches = fw.update_finalize_launches = 0
-            tk.tick_launches = 0
+            tk.tick_launches = dt_traverse.launches = eh.launches = 0
             srv_c = FlowTableServer(
                 eng, n_buckets=CHECK_TABLE[0], bucket_size=CHECK_TABLE[1],
                 timeout=CHECK_TIMEOUT, tick_engine=tick_engine,
@@ -1138,7 +1281,9 @@ def main() -> int:
             runs[impl] = (got_calls, srv_c.stats.as_dict(), {
                 "feature_update": fw.update_launches,
                 "feature_update_finalize": fw.update_finalize_launches,
-                "tick_step": tk.tick_launches},
+                "tick_step": tk.tick_launches,
+                "dt_traverse": dt_traverse.launches,
+                "engine_hop": eh.launches},
                 time.perf_counter() - t0)
         (a_calls, a_stats, a_l, a_s), (b_calls, b_stats, b_l, b_s) = (
             runs["cuda"], runs["fused"])
@@ -1150,16 +1295,22 @@ def main() -> int:
         check(a_stats == b_stats, f"{tick_engine} server stats cuda == fused")
         check(a_stats["spilled"] > 0 and a_stats["evicted"] > 0,
               f"the check run spills and evicts: {a_stats}")
-        check(b_l == {"feature_update": 0, "feature_update_finalize": 0,
-                      "tick_step": 0},
+        check(not any(b_l.values()),
               "the fused route launches no serving kernel")
+        # spilled flows run Engine.run: the hop kernel, once a partition
+        check(a_l["engine_hop"] > 0 and a_l["engine_hop"] % 3 == 0,
+              f"{tick_engine} cuda server: the spill walk runs the hop "
+              f"kernel, got {a_l}")
         if tick_engine == "legacy":
-            check(a_l["feature_update"] > 0 and a_l["tick_step"] == 0,
-                  f"legacy cuda server: fold kernel only, got {a_l}")
+            check(a_l["feature_update"] > 0 and a_l["dt_traverse"] > 0
+                  and a_l["tick_step"] == 0,
+                  f"legacy cuda server: fold and range-match kernels, got "
+                  f"{a_l}")
         else:
             check(a_l["tick_step"] == prefix_log["ticks"] > 0
                   and a_l["feature_update"] == 0
-                  and a_l["feature_update_finalize"] == 0,
+                  and a_l["feature_update_finalize"] == 0
+                  and a_l["dt_traverse"] == 0,
                   f"fused cuda server: one tick kernel a tick, got {a_l} "
                   f"over {prefix_log['ticks']} ticks")
         route_runs[tick_engine] = {
@@ -1188,12 +1339,52 @@ def main() -> int:
           f"{MAIN_TICKS_CHECKED} main-stream ticks checked")
     tick_in, slots_rc, pkt_rc, tick_plain = main_log.pop("last")
     del srv_m
+
+    # models wider than the tick kernel's register templates (k <= 8): its
+    # capacity instantiations, every tick against the rank loop, on small
+    # streams that spill (the spill walk runs the hop kernel at that k)
+    wide = {}
+    for kk in WIDE_K:
+        ds_w = make_dataset("d2", WIDE_FLOWS, seed=kk)
+        pdt_w = train_partitioned_dt(window_features(ds_w, 3), ds_w.labels,
+                                     partition_sizes=[2, 3, 2], k=kk)
+        eng_w = Engine.from_model(pdt_w)
+        check(eng_w.tables.dev.slot_op.shape[1] == kk, f"a k = {kk} model")
+        log = new_tick_log()
+        tk.tick_launches = eh.launches = 0
+        srv_w = FlowTableServer(eng_w, n_buckets=WIDE_TABLE[0],
+                                bucket_size=WIDE_TABLE[1])
+        stream_w = make_packet_stream(ds_w, seed=kk, profile="steady",
+                                      concurrency=WIDE_CONCURRENCY)
+        tk.tick_step = tick_vs_plain(tk, log)
+        try:
+            v_w = StreamVerdicts.concat(
+                [srv_w.ingest(b) for b in stream_w.ticks(CHECK_TICK)]
+                + [srv_w.flush()])
+        finally:
+            tk.tick_step = orig_tick
+        check(tk.tick_launches == log["ticks"] > 0
+              and srv_w.stats.spilled > 0 and eh.launches > 0,
+              f"k = {kk}: one tick kernel a tick, spills on the hop kernel")
+        order_w = np.argsort(v_w.flow_id)
+        check(np.array_equal(v_w.flow_id[order_w], np.arange(WIDE_FLOWS)),
+              f"k = {kk}: one verdict per flow")
+        want_w = pdt_w.predict(window_features(ds_w, 3), return_trace=True)
+        for name, oracle in zip(("labels", "recircs", "exit_partition"),
+                                want_w):
+            check(np.array_equal(getattr(v_w, name)[order_w], oracle),
+                  f"k = {kk}: served {name} == pdt.predict")
+        wide[f"k={kk}"] = dict(tick_log_summary(log), flows=WIDE_FLOWS,
+                               stats=srv_w.stats.as_dict(),
+                               hop_launches=eh.launches,
+                               verdicts_equal_predict=True)
     emit("serve_check", tolerance="zero: torch.equal and np.array_equal",
          comparisons=serve_checks,
          tick_kernel_vs_rank_loop={
              "check_prefix": tick_log_summary(prefix_log),
              "main_stream": dict(tick_log_summary(main_log),
-                                 ticks_from=first_checked)},
+                                 ticks_from=first_checked),
+             **wide},
          prefix_flows=CHECK_FLOWS,
          table_slots=CHECK_TABLE[0] * CHECK_TABLE[1],
          timeout_s=CHECK_TIMEOUT, servers=route_runs)
@@ -1346,17 +1537,38 @@ def main() -> int:
 
     # -- 8. summary -----------------------------------------------------------
     print(json.dumps({"kernels": [
+        {"name": "engine_hop", "route": "cuda",
+         "source": "src/repro_torch/csrc/engine_hop.cu",
+         "replaces": "src/repro/kernels/feature_window.py:115 and "
+                     "src/repro/kernels/dt_traverse.py:58, per hop of "
+                     "src/repro/core/inference.py:237 with its _hop_update",
+         "launches": launches["engine_hop"],
+         "launches_path": "main: Engine.run, one per partition",
+         "max_abs_err": err_hop, "ms": ms_hop, "plain_ms": plain_hop,
+         "bound_ms": bound_hop, "bound_by": by_hop, "library_ms": None,
+         "shape": f"B={B_MAIN},W={W},k={k},S={S},T={T},L={L}",
+         "equal": True},
         {"name": "feature_window", "route": "cuda",
          "source": "src/repro_torch/csrc/feature_window.cu",
          "replaces": "src/repro/kernels/feature_window.py:115",
-         "launches": launches["feature_window"], "max_abs_err": err_a,
+         "launches": launches["feature_window"],
+         "launches_path": "main: window_features (k = 41); Engine.run "
+                          "runs the hop kernel",
+         "max_abs_err": err_a,
          "ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a,
          "bound_by": by_a, "library_ms": None,
-         "shape": f"B={B_MAIN},W={W},k={k}", "equal": True},
+         "shape": f"B={B_MAIN},W={W},k={k}", "equal": True,
+         "training_shape": {
+             "shape": f"B={tr.n_flows},W={xtr.shape[2]},k=41",
+             "ms": ms_a41, "plain_ms": plain_a41, "bound_ms": bound_a41,
+             "bound_by": by_a41}},
         {"name": "dt_traverse", "route": "cuda",
          "source": "src/repro_torch/csrc/dt_traverse.cu",
          "replaces": "src/repro/kernels/dt_traverse.py:58",
-         "launches": launches["dt_traverse"], "max_abs_err": err_b,
+         "launches": route_runs["legacy"]["cuda_launches"]["dt_traverse"],
+         "launches_path": "serve_check: the legacy tick engine, cuda route "
+                          "(0 in Engine.run since the hop kernel)",
+         "main_launches": launches["dt_traverse"], "max_abs_err": err_b,
          "ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b,
          "bound_by": by_b, "library_ms": None,
          "shape": f"nb={nb},bb={bb},S={S},k={k},T={T},L={L}",

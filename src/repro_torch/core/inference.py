@@ -2,25 +2,30 @@
 
 Orchestrates the two data-plane phases per partition window:
   1. Feature Collection & Engineering -- fill the k registers for each
-     flow's active subtree (kernel A, ``kernels.feature_window``);
+     flow's active subtree;
   2. Subtree Model Prediction -- range-mark the registers and emit the
-     action, next SID or exit class (kernel B behind the SID dispatch,
-     ``kernels.dt_traverse`` / ``kernels.dispatch``).
+     action, next SID or exit class.
 Between partitions the engine performs the "recirculation": SID update
 and register reset, counted per flow.
 
 One device-resident walk (:func:`partition_walk`, a Python loop over the
-P partitions with no host sync inside) is parameterised by the step:
+P partitions with no host sync inside) is parameterised by the hop:
 
-* **fused** -- the plain PyTorch step (``ops.fused_step``), dense
-  per-flow gathers of the SID-keyed tables; the CPU path;
-* **cuda** -- the two CUDA kernels (``ops.cuda_step``); the card's path.
+* **fused** -- the plain PyTorch hop (``kernels.engine_hop
+  .engine_hop_plain``: ``ref.engine_hop_ref``, dense per-flow gathers of
+  the SID-keyed tables); the CPU path;
+* **cuda** -- the hop kernel (``kernels.engine_hop.engine_hop_kernel``,
+  ``csrc/engine_hop.cu``): one launch per partition does both phases and
+  the recirculation; the card's path.
 
-Both fetch the verdicts to the host once per batch, and both must equal
-:meth:`PartitionedDT.predict` (the numpy oracle) and the JAX package's
-engine bit for bit (docs/PARITY.md).  A flow that never takes an exit
-action reports ``-1`` sentinels (labels and exit partition), counted by
-``EngineResult.n_unterminated``.
+The walk writes labels, recircs, exit partitions and the register trace
+into one int32 buffer in the layout the host fetch wants; on the card it
+is copied once per batch into pinned host memory, and the returned
+arrays are views of that host copy, owned by the result.  Every route
+must equal :meth:`PartitionedDT.predict` (the numpy oracle) and the JAX
+package's engine bit for bit (docs/PARITY.md).  A flow that never takes
+an exit action reports ``-1`` sentinels (labels and exit partition),
+counted by ``EngineResult.n_unterminated``.
 
 Not ported yet: the looped backend, early-exit compaction, streaming
 and the ``auto``/``tuned`` routing (ROADMAP items A.5, A.7, A.9).  Live
@@ -29,6 +34,7 @@ per-packet serving is ``repro_torch.serve.flowtable``.
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import numpy as np
 import torch
@@ -38,6 +44,10 @@ from repro_torch.core.range_tables import pack_range_exec
 from repro_torch.core.tables import pack_tables
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.engine_hop import (
+    engine_hop_kernel, engine_hop_plain, write_hop,
+)
 
 
 @dataclasses.dataclass
@@ -56,6 +66,10 @@ class EngineResult:
 
 StepFn = ops.StepFn
 
+# one hop of the walk, in place: (pkts (B, W, F), carry, dev, p, *,
+# n_subtrees, regs_out) -> None, the contract of the walk backends
+HopFn = Callable[..., None]
+
 _IMPLS = (None, "fused", "cuda")
 
 
@@ -64,10 +78,11 @@ class EngineOptions:
     """Engine execution knobs.
 
     ``impl``: ``None`` (``cuda`` on a CUDA engine, ``fused`` on a CPU
-    one), ``"fused"`` (plain PyTorch) or ``"cuda"`` (the kernels; a CPU
-    engine refuses it).  ``block_b``: flow-block rows of the SID
-    dispatch and the range-match kernel (``None`` = 128); read only by
-    the ``cuda`` backend.
+    one), ``"fused"`` (plain PyTorch) or ``"cuda"`` (the hop kernel; a
+    CPU engine refuses it).  ``block_b``: flow-block rows of the SID
+    dispatch in the JAX package's Pallas walk, kept for API parity: the
+    hop kernel needs no SID dispatch and does not read it (the legacy
+    tick engine's range match does, through ``FlowTableServer``).
     """
     impl: str | None = None
     block_b: int | None = None
@@ -93,42 +108,31 @@ class EngineTables:
     n_classes: int
 
 
-def _walk_init(B: int, device: torch.device) -> tuple[torch.Tensor, ...]:
-    """Initial flow-walk carry: ``(sid, done, labels, recircs, exit_p)``.
+def _walk_buffers(B: int, P: int, k: int, with_trace: bool,
+                  device: torch.device):
+    """The walk's fetch buffer and its views.
 
-    ``labels`` / ``exit_partition`` start at the ``-1`` sentinel so a
-    flow that never takes an exit action is distinguishable from a
-    class-0 verdict at partition 0.
+    One int32 buffer of ``3 B + P B k`` words (``3 B`` without the trace):
+    ``labels | recircs | exit_partition | trace``, the (P, B, k) f32
+    register trace bit-cast.  ``labels`` / ``exit_partition`` start at the
+    ``-1`` sentinel so a flow that never takes an exit action is
+    distinguishable from a class-0 verdict at partition 0.  Returns
+    ``(buf, carry, trace)``: ``carry`` is ``(sid, done, labels, recircs,
+    exit_p)`` with the last three views of ``buf``, every flow at the
+    root SID 0; ``trace`` is None without the trace.
     """
-    i32 = dict(dtype=torch.int32, device=device)
-    return (
-        torch.zeros(B, **i32),                          # sid: all at root
-        torch.zeros(B, dtype=torch.bool, device=device),  # done
-        torch.full((B,), -1, **i32),                    # labels (sentinel)
-        torch.zeros(B, **i32),                          # recircs
-        torch.full((B,), -1, **i32),                    # exit_partition
-    )
-
-
-def _hop_update(carry, p: int, action: torch.Tensor, S: int):
-    """Recirculation bookkeeping for one hop.
-
-    Actions ``>= S`` exit with class ``action - S``; smaller actions
-    recirculate to that SID.  Everything is masked by ``active``, so
-    slots of flows already done may carry any action.
-    """
-    sid, done, labels, recircs, exit_p = carry
-    is_exit = action >= S
-    active = ~done
-    exiting = active & is_exit
-    labels = torch.where(exiting, action - S, labels)
-    exit_p = torch.where(exiting, p, exit_p)
-    done = done | exiting
-    cont = active & ~is_exit
-    # one control packet per transition; registers rebuilt next window
-    recircs = recircs + cont.to(torch.int32)
-    sid = torch.where(cont, action, sid)
-    return sid, done, labels, recircs, exit_p
+    buf = torch.empty(3 * B + (P * B * k if with_trace else 0),
+                      dtype=torch.int32, device=device)
+    labels, recircs, exit_p = buf[:3 * B].view(3, B)
+    labels.fill_(-1)
+    recircs.zero_()
+    exit_p.fill_(-1)
+    carry = (torch.zeros(B, dtype=torch.int32, device=device),  # sid: root
+             torch.zeros(B, dtype=torch.bool, device=device),   # done
+             labels, recircs, exit_p)
+    trace = (buf[3 * B:].view(torch.float32).view(P, B, k) if with_trace
+             else None)
+    return buf, carry, trace
 
 
 def partition_walk(
@@ -138,35 +142,58 @@ def partition_walk(
     n_subtrees: int,
     n_partitions: int,
     with_trace: bool = False,
-    step: StepFn = ops.fused_step,
-):
+    hop: HopFn = engine_hop_plain,
+) -> torch.Tensor:
     """Device-resident partition walk over the first ``n_partitions``
     windows.
 
-    Returns ``(labels, recircs, exit_partition, regs)`` device tensors,
-    int32 except ``regs`` (P, B, k) f32, which is ``None`` unless
-    ``with_trace``.  A Python loop over P with no host sync: each hop
-    reads its window ``win_pkts[:, p]`` in place.
+    Returns the walk's fetch buffer (see :func:`_walk_buffers`) on the
+    windows' device.  A Python loop over P with no host sync: each hop
+    reads its window ``win_pkts[:, p]`` in place and updates the carry,
+    whose verdict fields live in the buffer.
     """
     B = win_pkts.shape[0]
-    carry = _walk_init(B, win_pkts.device)
-    trace = []
+    buf, carry, trace = _walk_buffers(B, n_partitions, dev.slot_op.shape[1],
+                                      with_trace, win_pkts.device)
     for p in range(n_partitions):
-        regs, action = step(win_pkts[:, p], carry[0], dev)
-        carry = _hop_update(carry, p, action, n_subtrees)
-        if with_trace:
-            trace.append(regs)
-    _, _, labels, recircs, exit_p = carry
-    return labels, recircs, exit_p, (torch.stack(trace) if with_trace
-                                     else None)
+        hop(win_pkts[:, p], carry, dev, p, n_subtrees=n_subtrees,
+            regs_out=None if trace is None else trace[p])
+    return buf
+
+
+def step_hop(step: StepFn) -> HopFn:
+    """A walk hop from a partition stage: ``step`` on the carry's SIDs,
+    then ``ref.hop_update``, written in place (the two-kernel walk is
+    ``step_hop(ops.cuda_step(block_b))``)."""
+    def hop(pkts, carry, dev, p, *, n_subtrees, regs_out=None):
+        regs, action = step(pkts, carry[0], dev)
+        write_hop(carry, _ref.hop_update(carry, p, action, n_subtrees),
+                  regs, regs_out)
+    return hop
+
+
+def fetch(buf: torch.Tensor) -> np.ndarray:
+    """The walk's buffer on the host, in memory no later run touches.
+
+    A card's buffer is copied asynchronously into pinned memory from
+    PyTorch's caching host allocator, one block per call; the returned
+    array is a view that keeps the block alive, so the block is reused
+    only once every array of the result is gone.  A CPU buffer is its
+    own host copy."""
+    if buf.device.type != "cuda":
+        return buf.numpy()
+    host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
+    host.copy_(buf, non_blocking=True)
+    torch.cuda.current_stream(buf.device).synchronize()
+    return host.numpy()
 
 
 @dataclasses.dataclass(frozen=True)
 class WalkBackend:
-    """The device walk with one host fetch per batch; ``fused`` and
-    ``cuda`` differ only in the per-partition ``step``."""
+    """The device walk with one host fetch per batch; routes differ only
+    in the per-partition ``hop``."""
     name: str
-    step: StepFn
+    hop: HopFn
 
     def run(self, engine: "Engine", win_pkts, *,
             with_trace: bool = True) -> EngineResult:
@@ -174,31 +201,21 @@ class WalkBackend:
         # f32 on the engine's device, as the JAX engine's jnp.asarray
         x = torch.as_tensor(win_pkts[:, :P]).to(device=engine.device,
                                                  dtype=torch.float32)
-        labels, recircs, exit_p, regs = partition_walk(
-            x, engine.tables.dev, n_subtrees=engine.tables.n_subtrees,
-            n_partitions=P, with_trace=with_trace, step=self.step)
+        B = x.shape[0]
+        k = engine.tables.dev.slot_op.shape[1]
         # ONE device->host transfer for the whole batch: the f32 trace
         # rides along bit-cast to int32
-        parts = [labels, recircs, exit_p]
-        if regs is not None:
-            parts.append(regs.reshape(-1).view(torch.int32))
-        host = torch.cat(parts).cpu().numpy()
-        B = labels.shape[0]
-        labels_h, recircs_h, exit_h = (host[i * B:(i + 1) * B]
-                                       for i in range(3))
-        trace = []
-        if regs is not None:
-            trace = list(host[3 * B:].view(np.float32).reshape(regs.shape))
-        return EngineResult(labels_h, recircs_h, exit_h, trace)
+        host = fetch(partition_walk(
+            x, engine.tables.dev, n_subtrees=engine.tables.n_subtrees,
+            n_partitions=P, with_trace=with_trace, hop=self.hop))
+        labels, recircs, exit_p = (host[i * B:(i + 1) * B] for i in range(3))
+        trace = (list(host[3 * B:].view(np.float32).reshape(P, B, k))
+                 if with_trace else [])
+        return EngineResult(labels, recircs, exit_p, trace)
 
 
-FUSED_BACKEND = WalkBackend(name="fused", step=ops.fused_step)
-
-
-def cuda_backend(block_b: int = ops.BLOCK_B) -> WalkBackend:
-    """The kernel walk with ``block_b``-row SID blocks."""
-    return WalkBackend(name=f"cuda[bb={block_b}]",
-                       step=ops.cuda_step(block_b))
+FUSED_BACKEND = WalkBackend(name="fused", hop=engine_hop_plain)
+HOP_BACKEND = WalkBackend(name="cuda", hop=engine_hop_kernel)
 
 
 @dataclasses.dataclass
@@ -238,7 +255,7 @@ class Engine:
         if self.device.type != "cuda":
             raise ValueError("impl='cuda' needs an engine on a CUDA device; "
                              f"this one is on {self.device}")
-        return cuda_backend(opt.block_b or ops.BLOCK_B)
+        return HOP_BACKEND
 
     def run(self, win_pkts, *, with_trace: bool = True,
             options: EngineOptions | None = None) -> EngineResult:

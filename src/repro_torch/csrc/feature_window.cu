@@ -8,32 +8,28 @@
 // What bounds it on the H100: device memory.  Each flow's packet window
 // (W packets x 6 f32 fields) is read once and every slot's register is
 // a handful of compares and adds per packet; at B = 2^20 flows, W = 65,
-// k = 4 that is 1.64 GB of packets for ~0.5 ms at 3.35 TB/s.
+// k = 4 that is 1.64 GB of packets for ~0.5 ms at 3.35 TB/s.  At the
+// training shape (B = 4200, W = 64, k = 41) the packets are 6.5 MB, and
+// what bounds it there is the dependent walk of 64 packets a thread.
 //
-// Design:
-//  * one thread per (flow, slot); the k threads of one flow are adjacent
-//    in the warp, so they read the same packet bytes in the same
-//    instruction and the load is served once;
-//  * the window is walked in order, w = 0 .. W-1, keeping count, sum,
-//    sum of squares, max, min, first and last in registers -- no window
-//    tensor and no (B, W, k) intermediate ever reaches memory;
-//  * the packet tensor is read in place through its flow stride, so the
-//    engine's per-hop view `win_pkts[:, p]` needs no copy;
-//  * COUNT/SUM/SUMSQ are the strict left-to-right chains of
-//    `ordered_wsum`: they start at the term of packet 0 (not at 0.0) and
-//    every product and add is spelled __fmul_rn/__fadd_rn, so the
-//    compiler can neither contract v*v + acc into an FMA nor reorder.
-//    The build also passes -fmad=false.
+// Design: the window walk of window.cuh, shared with the hop kernel
+// (engine_hop.cu).  A CTA stages the windows of its 256 / k flows in
+// shared memory, chunk by chunk with 8-byte cp.async copies, double
+// buffered, so the next chunk is in flight while this one is walked; each
+// packet's predicates are decoded once, and each thread walks one
+// (flow, slot) pair from shared memory.  The packet tensor is read in
+// place through its flow stride, so the engine's per-hop view
+// `win_pkts[:, p]` needs no copy.  Here the slot rows come pre-gathered,
+// (B, k) each; the hop kernel reads them from the SID-keyed tables.
 #include <cuda_runtime.h>
-#include <math.h>
 
-#include "packet_fields.cuh"
+#include "window.cuh"
 
 namespace {
 
 using namespace splidt;
 
-__global__ void feature_window_kernel(
+__global__ void __launch_bounds__(kWindowThreads) feature_window_kernel(
     const float* __restrict__ pkts,     // (B, W, 6), flow stride in floats
     long long flow_stride,
     const int* __restrict__ slot_op,    // (B, k)
@@ -41,71 +37,48 @@ __global__ void feature_window_kernel(
     const int* __restrict__ slot_pred,  // (B, k)
     const float* __restrict__ slot_init,// (B, k)
     float* __restrict__ out,            // (B, k)
-    long long n_slots, int W, int k) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_slots) return;
-  const long long b = i / k;
-  const int op = slot_op[i];
-  const int field = slot_field[i];
-  const int pred = slot_pred[i];
-  const float* row = pkts + b * flow_stride;
-
-  float count = 0.0f, total = 0.0f, sumsq = 0.0f;
-  float mx = -INFINITY, mn = INFINITY, first = 0.0f, last = 0.0f;
-  bool any = false;
-  for (int w = 0; w < W; ++w) {
-    const float* pk = row + (long long)w * PKT_NFIELDS;
-    const bool m = pred_mask(pk, pred);
-    const float v = field_value(pk, field);
-    const float mf = m ? 1.0f : 0.0f;
-    const float tv = __fmul_rn(v, mf);
-    const float sv = __fmul_rn(__fmul_rn(v, v), mf);
-    if (w == 0) {
-      count = mf; total = tv; sumsq = sv;
-    } else {
-      count = __fadd_rn(count, mf);
-      total = __fadd_rn(total, tv);
-      sumsq = __fadd_rn(sumsq, sv);
-    }
-    if (m) {
-      // NaN propagates, as in the reference's max/min reductions
-      if (v > mx || v != v) mx = (mx != mx) ? mx : v;
-      if (v < mn || v != v) mn = (mn != mn) ? mn : v;
-      if (!any) first = v;
-      last = v;
-      any = true;
-    }
-  }
-  float r = 0.0f;
-  switch (op) {
-    case OP_COUNT: r = count; break;
-    case OP_SUM: r = total; break;
-    case OP_MAX: r = isfinite(mx) ? mx : 0.0f; break;
-    case OP_MIN: r = isfinite(mn) ? mn : slot_init[i]; break;
-    case OP_LAST: r = any ? last : 0.0f; break;
-    case OP_FIRST: r = any ? first : 0.0f; break;
-    case OP_SUMSQ: r = sumsq; break;
-    default: r = 0.0f; break;
-  }
-  out[i] = r;
+    long long B, int W, int k, int flows, int chunk, int stride) {
+  extern __shared__ __align__(16) float smem[];
+  const long long b0 = (long long)blockIdx.x * flows;
+  const int f = threadIdx.x / k;
+  const WindowTile t{pkts, flow_stride, b0,
+                     (int)min((long long)flows, B - b0), W, chunk, stride};
+  const bool active = f < t.n_flows;
+  const long long i = b0 * k + threadIdx.x;   // the pair's (B, k) index
+  const int field = active ? slot_field[i] : 0;
+  const int pred = active ? slot_pred[i] : 0;
+  const WindowStats st =
+      walk_windows(t, flows, active, f, pred, field, smem);
+  if (active) out[i] = st.reg(slot_op[i], slot_init[i]);
 }
 
 }  // namespace
 
+// `flows`, `chunk`, `stride`, `smem_bytes` and `carveout` (percent) come
+// from kernels/window.py's window_geometry.  Returns a cudaError_t.
 extern "C" int feature_window_launch(
     const float* pkts, long long flow_stride, const int* slot_op,
     const int* slot_field, const int* slot_pred, const float* slot_init,
-    float* out, long long n_flows, int W, int k, void* stream) {
-  const long long n_slots = n_flows * k;
-  if (n_slots == 0) return 0;
-  const int threads = 256;
-  const long long blocks = (n_slots + threads - 1) / threads;
-  feature_window_kernel<<<(unsigned)blocks, threads, 0,
+    float* out, long long B, int W, int k, int flows, int chunk, int stride,
+    int smem_bytes, int carveout, void* stream) {
+  if (B == 0) return 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      feature_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(feature_window_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               carveout);
+  if (err != cudaSuccess) return (int)err;
+  const long long blocks = (B + flows - 1) / flows;
+  feature_window_kernel<<<(unsigned)blocks, kWindowThreads, smem_bytes,
                           (cudaStream_t)stream>>>(
-      pkts, flow_stride, slot_op, slot_field, slot_pred, slot_init, out,
-      n_slots, W, k);
+      pkts, flow_stride, slot_op, slot_field, slot_pred, slot_init, out, B,
+      W, k, flows, chunk, stride);
   return (int)cudaGetLastError();
 }
+
+extern "C" int window_threads() { return kWindowThreads; }
 
 extern "C" const char* feature_window_error_string(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -1,5 +1,5 @@
 // Packet-field predicates and slot selects shared by the feature kernels
-// (feature_window.cu, feature_update.cu, tick_step.cu).
+// (feature_window.cu, feature_update.cu, tick_step.cu, engine_hop.cu).
 //
 // The codes mirror src/repro_torch/core/features.py.  Both kernels must
 // make the same per-packet decisions as the plain versions
@@ -45,6 +45,18 @@ __device__ __forceinline__ bool pred_mask(const float* __restrict__ pk,
 __device__ __forceinline__ float field_value(const float* __restrict__ pk,
                                              int field) {
   return (field >= 0 && field < PKT_NFIELDS) ? pk[field] : 0.0f;
+}
+
+// field_value for a packet held in registers: the compare-and-select
+// over the six fields keeps the array's indices compile-time, so it stays
+// in registers (a dynamic index would put it in local memory).
+__device__ __forceinline__ float select_field(const float (&pk)[PKT_NFIELDS],
+                                              int f) {
+  float v = 0.0f;
+#pragma unroll
+  for (int i = 0; i < PKT_NFIELDS; ++i)
+    if (f == i) v = pk[i];
+  return v;
 }
 
 // torch.maximum / torch.minimum: NaN if either side is NaN (fmaxf and

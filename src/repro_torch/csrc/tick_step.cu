@@ -20,7 +20,7 @@
 // pkts_seen == win_lo (the window-boundary reset); fold the packet under
 // the current SID's slot rows; count it; where pkts_seen reaches win_hi,
 // finalize, range-match against the subtree, and apply the walk's hop
-// (`core/inference.py::_hop_update` and the tick engine's `_hop_round`):
+// (`kernels/ref.py::hop_update` and the tick engine's `_hop_round`):
 // an exit or a fall off the last partition writes the four verdict
 // buffers once and retires the slot, anything else advances part and
 // the window from `bounds`; every hop blanks acc/seen for the new SID.
@@ -48,8 +48,12 @@
 //   S = 30, k = 4, T = L = 8 the whole tables are 15,360 bytes (slot rows
 //   1,920, thresholds 3,840, leaf bounds 7,680, actions and validity
 //   1,920), resident in L1/L2 after the first hops;
-// - the per-thread state is templated on k (1..kMaxK), so every register
-//   array has compile-time indices and stays in registers.
+// - the per-thread state is templated on k: for k = 1..kExactK every
+//   register array has compile-time indices and stays in registers; for
+//   k = 9..kMaxK (= N_FEATURES, 41, the most the JAX server serves) the
+//   arrays are sized to a capacity (16, 32, 41) with a runtime k below it,
+//   so their loops run k times with dynamic indices and the row lives in
+//   local memory (cached in L1), which ptxas reports as stack.
 // The row math is fold.cuh's, shared with feature_update.cu and
 // dt_traverse.cu; -fmad=false and __fmul_rn/__fadd_rn keep it bit-equal.
 // The kernel writes nothing to the dummy row N and allocates nothing: the
@@ -62,7 +66,8 @@ namespace {
 
 using namespace splidt;
 
-constexpr int kMaxK = 8;      // kernels/tick_step.py K_MAX
+constexpr int kExactK = 8;    // k held in registers: 1..kExactK
+constexpr int kMaxK = 41;     // kernels/tick_step.py K_MAX (N_FEATURES)
 constexpr int kThreads = 64;
 
 struct State {                 // (N + 1)-row TickState, in place
@@ -100,18 +105,6 @@ struct Verdicts {              // (N+1,) each, filled by the wrapper
   int* exit;
 };
 
-// The packet field `f` of a packet held in registers, 0.0 for a code
-// outside 0..PKT_NFIELDS-1 (packet_fields.cuh's field_value, without a
-// dynamic index into the register array).
-__device__ __forceinline__ float select_field(const float (&pk)[PKT_NFIELDS],
-                                              int f) {
-  float v = 0.0f;
-#pragma unroll
-  for (int i = 0; i < PKT_NFIELDS; ++i)
-    if (f == i) v = pk[i];
-  return v;
-}
-
 // One cell's packet: three 8-byte loads where the cell is live, zeros
 // where it is padding.
 __device__ __forceinline__ void load_packet(const float* __restrict__ pkt_rc,
@@ -129,14 +122,21 @@ __device__ __forceinline__ void load_packet(const float* __restrict__ pkt_rc,
   }
 }
 
-// One slot's row, held in registers between its load and its store.
-template <int K>
+// One slot's row, held in registers (or, above kExactK, local memory)
+// between its load and its store.  CAP is the arrays' size; kExact says
+// that k == CAP, which makes every loop's trip count a constant.
+template <int CAP, bool kExact>
 struct Flow {
-  float acc[K];
-  int seen[K];
-  int op[K], field[K], pred[K];   // the current SID's slot rows
-  float init[K];
+  float acc[CAP];
+  int seen[CAP];
+  int op[CAP], field[CAP], pred[CAP];   // the current SID's slot rows
+  float init[CAP];
   int sid, part, lo, hi, pkts, recircs, retired;
+  int k;                          // the slots a subtree has, <= CAP
+
+  // `#pragma unroll` unrolls a loop fully where this is a constant and
+  // leaves it rolled where it is not
+  __device__ __forceinline__ int n() const { return kExact ? CAP : k; }
 
   // table row of a SID: -1 (no leaf matched at the last hop) reads row
   // S - 1, as a negative index does in the plain version
@@ -145,9 +145,9 @@ struct Flow {
   }
 
   __device__ __forceinline__ void load_slot_rows(const Tables& tb) {
-    const long long base = table_row(tb) * K;
+    const long long base = table_row(tb) * n();
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
+    for (int j = 0; j < n(); ++j) {
       op[j] = __ldg(tb.slot_op + base + j);
       field[j] = __ldg(tb.slot_field + base + j);
       pred[j] = __ldg(tb.slot_pred + base + j);
@@ -157,9 +157,9 @@ struct Flow {
 
   __device__ __forceinline__ void load(const State& st, const Tables& tb,
                                        int slot) {
-    const long long base = (long long)slot * K;
+    const long long base = (long long)slot * n();
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
+    for (int j = 0; j < n(); ++j) {
       acc[j] = st.acc[base + j];
       seen[j] = st.seen[base + j];
     }
@@ -174,9 +174,9 @@ struct Flow {
   }
 
   __device__ __forceinline__ void store(const State& st, int slot) const {
-    const long long base = (long long)slot * K;
+    const long long base = (long long)slot * n();
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
+    for (int j = 0; j < n(); ++j) {
       st.acc[base + j] = acc[j];
       st.seen[base + j] = seen[j];
     }
@@ -191,7 +191,7 @@ struct Flow {
 
   __device__ __forceinline__ void fold(const float (&pk)[PKT_NFIELDS]) {
 #pragma unroll
-    for (int j = 0; j < K; ++j)
+    for (int j = 0; j < n(); ++j)
       fold_slot(op[j], pred_mask(pk, pred[j]), select_field(pk, field[j]),
                 acc[j], seen[j]);
   }
@@ -201,15 +201,15 @@ struct Flow {
   __device__ __forceinline__ bool hop(const State& st, const Tables& tb,
                                       const Verdicts& vd, int slot) {
     const long long s = table_row(tb);
-    int marks[K];
+    int marks[CAP];
 #pragma unroll
-    for (int j = 0; j < K; ++j)
+    for (int j = 0; j < n(); ++j)
       marks[j] = marks_below(finalize_slot(op[j], init[j], acc[j], seen[j]),
-                             tb.thr + (s * K + j) * tb.T, tb.T);
+                             tb.thr + (s * n() + j) * tb.T, tb.T);
     const int action = first_hit_leaf(
-        [&](int j) { return marks[j]; }, tb.leaf_lo + s * tb.L * K,
-        tb.leaf_hi + s * tb.L * K, tb.leaf_action + s * tb.L,
-        tb.leaf_valid + s * tb.L, K, tb.L);
+        [&](int j) { return marks[j]; }, tb.leaf_lo + s * tb.L * n(),
+        tb.leaf_hi + s * tb.L * n(), tb.leaf_action + s * tb.L,
+        tb.leaf_valid + s * tb.L, n(), tb.L);
     bool adv = false;
     if (action >= tb.n_subtrees) {              // exit with a class
       vd.mask[slot] = 1;
@@ -236,7 +236,7 @@ struct Flow {
     }
     load_slot_rows(tb);                         // blank state, new SID
 #pragma unroll
-    for (int j = 0; j < K; ++j) {
+    for (int j = 0; j < n(); ++j) {
       acc[j] = blank_acc(op[j]);
       seen[j] = 0;
     }
@@ -244,14 +244,15 @@ struct Flow {
   }
 };
 
-template <int K>
+template <int CAP, bool kExact>
 __global__ void __launch_bounds__(kThreads) tick_step_kernel(
     const int* __restrict__ slots_rc,    // (R, C)
     const float* __restrict__ pkt_rc,    // (R, C, 6)
-    int R, int C, State st, Tables tb, Verdicts vd) {
+    int R, int C, int k, State st, Tables tb, Verdicts vd) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= C) return;
-  Flow<K> f;
+  Flow<CAP, kExact> f;
+  if constexpr (!kExact) f.k = k;       // k == CAP: n() never reads it
   int slot = -1;                                // no row loaded yet
   int next = slots_rc[c];
   float next_pk[PKT_NFIELDS];
@@ -286,13 +287,13 @@ __global__ void __launch_bounds__(kThreads) tick_step_kernel(
   if (slot >= 0) f.store(st, slot);
 }
 
-template <int K>
-int launch(const int* slots_rc, const float* pkt_rc, int R, int C,
+template <int CAP, bool kExact>
+int launch(const int* slots_rc, const float* pkt_rc, int R, int C, int k,
            const State& st, const Tables& tb, const Verdicts& vd,
            cudaStream_t stream) {
   const int blocks = (C + kThreads - 1) / kThreads;
-  tick_step_kernel<K><<<blocks, kThreads, 0, stream>>>(slots_rc, pkt_rc, R,
-                                                        C, st, tb, vd);
+  tick_step_kernel<CAP, kExact><<<blocks, kThreads, 0, stream>>>(
+      slots_rc, pkt_rc, R, C, k, st, tb, vd);
   return (int)cudaGetLastError();
 }
 
@@ -318,17 +319,25 @@ extern "C" int tick_step_launch(
                   leaf_hi, leaf_action, leaf_valid, S, T, L, n_subtrees};
   const Verdicts vd{v_mask, v_label, v_recirc, v_exit};
   cudaStream_t s = (cudaStream_t)stream;
+#define SPLIDT_TICK(CAP, EXACT) \
+  launch<CAP, EXACT>(slots_rc, pkt_rc, R, C, k, st, tb, vd, s)
   switch (k) {
-    case 1: return launch<1>(slots_rc, pkt_rc, R, C, st, tb, vd, s);
-    case 2: return launch<2>(slots_rc, pkt_rc, R, C, st, tb, vd, s);
-    case 3: return launch<3>(slots_rc, pkt_rc, R, C, st, tb, vd, s);
-    case 4: return launch<4>(slots_rc, pkt_rc, R, C, st, tb, vd, s);
-    case 5: return launch<5>(slots_rc, pkt_rc, R, C, st, tb, vd, s);
-    case 6: return launch<6>(slots_rc, pkt_rc, R, C, st, tb, vd, s);
-    case 7: return launch<7>(slots_rc, pkt_rc, R, C, st, tb, vd, s);
-    case 8: return launch<8>(slots_rc, pkt_rc, R, C, st, tb, vd, s);
-    default: return (int)cudaErrorInvalidValue;
+    case 1: return SPLIDT_TICK(1, true);
+    case 2: return SPLIDT_TICK(2, true);
+    case 3: return SPLIDT_TICK(3, true);
+    case 4: return SPLIDT_TICK(4, true);
+    case 5: return SPLIDT_TICK(5, true);
+    case 6: return SPLIDT_TICK(6, true);
+    case 7: return SPLIDT_TICK(7, true);
+    case 8: return SPLIDT_TICK(8, true);
+    default: break;
   }
+  static_assert(kExactK == 8, "the switch above covers 1..kExactK");
+  if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
+  if (k <= 16) return SPLIDT_TICK(16, false);
+  if (k <= 32) return SPLIDT_TICK(32, false);
+  return SPLIDT_TICK(kMaxK, false);
+#undef SPLIDT_TICK
 }
 
 extern "C" const char* tick_step_error_string(int err) {

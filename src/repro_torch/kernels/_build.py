@@ -24,7 +24,7 @@ import subprocess
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("feature_window.cu", "dt_traverse.cu", "feature_update.cu",
-           "tick_step.cu", "chunk_scan.cu")
+           "tick_step.cu", "engine_hop.cu", "chunk_scan.cu")
 # -fmad=false: no multiply-add contraction anywhere (docs/PARITY.md §1);
 # the SpliDT kernels also spell their float ops with __fmul_rn/__fadd_rn
 # (chunk_scan, held to a tolerance, writes its fmaf explicitly)

@@ -9,14 +9,18 @@ for bit.
 
 What bounds kernel A on the H100: device memory.  Every flow's packet
 window is read once; at B = 2^20 flows, W = 65, k = 4 the packets are
-1.64 GB, about 0.5 ms at 3.35 TB/s.  The design keeps everything else
-out of memory: one thread per (flow, slot) walks the window in order
-with its seven running statistics in registers, and the packet tensor
-is read in place through its flow stride, so the engine's per-hop view
+1.64 GB, about 0.5 ms at 3.35 TB/s.  The design is the window walk of
+``csrc/window.cuh``, shared with the hop kernel (``kernels.engine_hop``):
+a CTA stages its flows' windows in shared memory with coalesced 8-byte
+copies, chunk by chunk and double buffered, and each thread walks one
+(flow, slot) pair with its seven running statistics in registers
+(geometry: ``kernels.window.window_geometry``).  The packet tensor is
+read in place through its flow stride, so a per-hop view
 ``win_pkts[:, p]`` costs no copy (a ``.contiguous()`` per hop would move
 another 1.6 GB).  The window sums are the strict left-to-right
 ``ordered_wsum`` chains, spelled with round-to-nearest intrinsics and
-built with ``-fmad=false`` (docs/PARITY.md §1).
+built with ``-fmad=false`` (docs/PARITY.md §1).  Since the engine's walk
+runs the hop kernel, kernel A runs in ``window_features`` (k = 41).
 
 The fold kernels (``csrc/feature_update.cu``) replace
 ``feature_update_pallas`` and ``feature_update_finalize_pallas``; their
@@ -38,6 +42,9 @@ import torch
 
 from repro_torch.core.features import PKT_NFIELDS
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.window import (
+    WINDOW_THREADS, check_window_view, window_geometry,
+)
 
 #: kernel launches since the last reset (``chip_smoke.py`` zeroes each
 #: before driving the path that runs it): kernel A, the fold kernel
@@ -55,12 +62,18 @@ def _lib():
     lib = _build.load(_SOURCE)
     if lib.feature_window_launch.argtypes is None:
         p = ctypes.c_void_p
+        n, i = ctypes.c_longlong, ctypes.c_int
         lib.feature_window_launch.argtypes = [
-            p, ctypes.c_longlong, p, p, p, p, p, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, p]
+            p, n, p, p, p, p, p, n, i, i, i, i, i, i, i, p]
         lib.feature_window_launch.restype = ctypes.c_int
         lib.feature_window_error_string.argtypes = [ctypes.c_int]
         lib.feature_window_error_string.restype = ctypes.c_char_p
+        lib.window_threads.argtypes = []
+        lib.window_threads.restype = ctypes.c_int
+        if lib.window_threads() != WINDOW_THREADS:
+            raise RuntimeError(f"csrc/window.cuh runs CTAs of "
+                               f"{lib.window_threads()} threads, "
+                               f"WINDOW_THREADS is {WINDOW_THREADS}")
     return lib
 
 
@@ -82,25 +95,15 @@ def feature_window_kernel(
 ) -> torch.Tensor:
     """Launch kernel A on the current stream; returns regs (B, k) f32.
 
-    ``pkts`` must have its ``(W, PKT_NFIELDS)`` inner block contiguous;
-    its flow stride is passed to the kernel, so a view such as
-    ``win_pkts[:, p]`` is read in place.
+    ``pkts`` must have its ``(W, PKT_NFIELDS)`` inner block contiguous
+    and be 8-byte aligned with an even flow stride
+    (``kernels.window.check_window_view``); its flow stride is passed to
+    the kernel, so a view such as ``win_pkts[:, p]`` is read in place.
+    Takes k up to ``kernels.window.WINDOW_THREADS`` slots.
     """
     global launches
-    if pkts.device.type != "cuda":
-        raise ValueError(f"feature_window_kernel needs CUDA tensors, got "
-                         f"{pkts.device}; kernels.ops routes CPU tensors "
-                         "to the plain version")
-    if pkts.dtype != torch.float32 or pkts.dim() != 3 \
-            or pkts.shape[2] != PKT_NFIELDS:
-        raise ValueError(f"pkts: need f32 (B, W, {PKT_NFIELDS}), got "
-                         f"{pkts.dtype} {tuple(pkts.shape)}")
-    if pkts.stride(2) != 1 or pkts.stride(1) != PKT_NFIELDS:
-        raise ValueError("pkts: the (W, fields) block of each flow must be "
-                         f"contiguous, got strides {pkts.stride()}")
+    check_window_view(pkts, "feature_window_kernel")
     B, W, _ = pkts.shape
-    if W < 1:
-        raise ValueError("pkts: need a window of at least one packet")
     k = slot_op.shape[1] if slot_op.dim() == 2 else -1
     for name, x, dt in (("slot_op", slot_op, torch.int32),
                         ("slot_field", slot_field, torch.int32),
@@ -112,12 +115,14 @@ def feature_window_kernel(
     out = torch.empty((B, k), dtype=torch.float32, device=pkts.device)
     if B == 0 or k == 0:
         return out
+    g = window_geometry(B, W, k)
     lib = _lib()
     stream = torch.cuda.current_stream(pkts.device).cuda_stream
     err = lib.feature_window_launch(
         pkts.data_ptr(), pkts.stride(0), slot_op.data_ptr(),
         slot_field.data_ptr(), slot_pred.data_ptr(), slot_init.data_ptr(),
-        out.data_ptr(), B, W, k, stream)
+        out.data_ptr(), B, W, k, g.flows, g.chunk, g.stride, g.smem_bytes,
+        g.carveout, stream)
     if err != 0:
         msg = lib.feature_window_error_string(err).decode()
         raise RuntimeError(f"feature_window kernel launch failed: {msg}")

@@ -5,10 +5,12 @@ tensor launches the hand-written kernel, a CPU tensor runs the plain
 PyTorch version (``kernels.ref``).  Nothing falls back: on a CUDA tensor
 the kernel runs or the call raises.
 
-All marshalling is device-resident: per-SID slot rows are gathered by
-torch indexing before the feature kernel, and the range-match kernel
-sits behind the device-side SID dispatch (``kernels.dispatch``), so a
-partition hop needs no host round trip.
+The engine's walk on the card runs one hop kernel per partition
+(``kernels.engine_hop``), which reads the SID-keyed tables itself.  The
+two-kernel stage :func:`cuda_step` (kernel A on SID-gathered slot rows,
+then kernel B behind the device-side SID dispatch, ``kernels.dispatch``)
+stays callable beside it; the legacy tick engine runs kernel B through
+:func:`dt_traverse`.
 """
 from __future__ import annotations
 
@@ -80,35 +82,16 @@ StepFn = Callable[[torch.Tensor, torch.Tensor, DeviceTables],
                   tuple[torch.Tensor, torch.Tensor]]
 
 
-def fused_step(
-    pkts: torch.Tensor,        # (B, W, PKT_NFIELDS) one partition's windows
-    sid: torch.Tensor,         # (B,) int32 active subtree per flow
-    dev: DeviceTables,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """One partition stage in plain PyTorch: registers then action.
-
-    Both phases are the reference math with dense per-flow gathers of
-    the SID-keyed tables.  Returns ``(regs (B, k) f32, action (B,)
-    int32)``.
-    """
-    s = sid.to(torch.int64)
-    regs = _ref.feature_window_ref(
-        pkts, dev.slot_op[s], dev.slot_field[s], dev.slot_pred[s],
-        dev.slot_init[s])
-    action = _ref.dt_traverse_ref(
-        regs, dev.thresholds[s], dev.leaf_lo[s], dev.leaf_hi[s],
-        dev.leaf_action[s], dev.leaf_valid[s] > 0)
-    return regs, action
-
-
 @functools.lru_cache(maxsize=None)
 def cuda_step(block_b: int = BLOCK_B) -> StepFn:
-    """The kernel partition stage (counterpart of ``pallas_step``).
+    """The two-kernel partition stage (counterpart of ``pallas_step``).
 
     The feature kernel fills the registers from SID-gathered slot rows;
     the range-match kernel runs behind the device-side SID dispatch with
     ``block_b``-row flow blocks.  Both kernels take CUDA tensors only.
-    Cached so each ``block_b`` maps to one function object.
+    ``Engine.run`` runs the hop kernel instead; this stage stays so the
+    two walks can be timed side by side (``chip_smoke.py``).  Cached so
+    each ``block_b`` maps to one function object.
     """
     if block_b <= 0:
         raise ValueError(f"block_b must be positive, got {block_b}")

@@ -213,6 +213,62 @@ def dt_traverse_ref(
 
 
 # ---------------------------------------------------------------------------
+# one engine hop: the partition stage and the walk's bookkeeping
+# ---------------------------------------------------------------------------
+def fused_step(pkts: torch.Tensor, sid: torch.Tensor, dev
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One partition stage in plain PyTorch: registers then action.
+
+    ``pkts`` (B, W, PKT_NFIELDS) one partition's windows, ``sid`` (B,)
+    int32 active subtree per flow (``-1`` reads row S - 1, as a negative
+    index does), ``dev`` the engine's ``DeviceTables``.  Both phases are
+    the reference math with dense per-flow gathers of the SID-keyed
+    tables.  Returns ``(regs (B, k) f32, action (B,) int32)``.
+    """
+    s = sid.to(torch.int64)
+    regs = feature_window_ref(pkts, dev.slot_op[s], dev.slot_field[s],
+                              dev.slot_pred[s], dev.slot_init[s])
+    action = dt_traverse_ref(regs, dev.thresholds[s], dev.leaf_lo[s],
+                             dev.leaf_hi[s], dev.leaf_action[s],
+                             dev.leaf_valid[s] > 0)
+    return regs, action
+
+
+def hop_update(carry, p, action: torch.Tensor, S: int):
+    """The walk's recirculation bookkeeping for one hop (the JAX
+    ``core.inference._hop_update``).
+
+    ``carry`` is ``(sid, done, labels, recircs, exit_p)``.  Actions
+    ``>= S`` exit with class ``action - S``; smaller actions recirculate
+    to that SID.  Everything is masked by ``active``, so slots of flows
+    already done may carry any action.  ``p`` is the hop index (an int,
+    or a per-row tensor in the serving engines).
+    """
+    sid, done, labels, recircs, exit_p = carry
+    is_exit = action >= S
+    active = ~done
+    exiting = active & is_exit
+    labels = torch.where(exiting, action - S, labels)
+    exit_p = torch.where(exiting, p, exit_p)
+    done = done | exiting
+    cont = active & ~is_exit
+    # one control packet per transition; registers rebuilt next window
+    recircs = recircs + cont.to(torch.int32)
+    sid = torch.where(cont, action, sid)
+    return sid, done, labels, recircs, exit_p
+
+
+def engine_hop_ref(pkts: torch.Tensor, carry, dev, p: int, S: int):
+    """One hop of the engine's walk: :func:`fused_step` on the carry's
+    SIDs, then :func:`hop_update`.  The plain version of the hop kernel
+    (``csrc/engine_hop.cu``).  Returns ``(carry, regs (B, k) f32)``; done
+    flows' registers are computed with their frozen SID, as the trace
+    holds them."""
+    regs, action = fused_step(pkts, carry[0], dev)
+    return hop_update(carry, p, action, S), regs
+
+
+# ---------------------------------------------------------------------------
 # chunk_scan: gated linear recurrence (RWKV6 / Mamba2-SSD family)
 # ---------------------------------------------------------------------------
 # Held to tolerances (tests/test_kernels.py), not to bits: the LM prototype

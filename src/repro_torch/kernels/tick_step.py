@@ -18,7 +18,7 @@ capacity) is the dummy row every padded or masked scatter lands on.
   the R ranks: each rank folds one packet per slot
   (``ref.feature_update_finalize_ref``), then hops every slot whose
   window completed (the dense ``ref.dt_traverse_ref`` and the walk's own
-  ``core.inference._hop_update`` bookkeeping); empty trailing windows
+  ``ref.hop_update`` bookkeeping); empty trailing windows
   (flows shorter than P packets) drain in P masked rounds.
 * Verdicts accumulate in per-slot device buffers that the server fetches
   once per tick.
@@ -44,8 +44,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.features import PKT_IAT, PKT_NFIELDS
-from repro_torch.core.inference import _hop_update
+from repro_torch.core.features import N_FEATURES, PKT_IAT, PKT_NFIELDS
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.dispatch import dispatch_dt_traverse
@@ -56,9 +55,11 @@ _I32 = torch.int32
 #: before driving the serving path)
 tick_launches = 0
 
-#: the largest k (feature slots per subtree) the tick kernel takes: its
-#: per-thread state is templated on k (``csrc/tick_step.cu`` kMaxK)
-K_MAX = 8
+#: the largest k (feature slots per subtree) the tick kernel takes, every
+#: k a model can have (``csrc/tick_step.cu`` kMaxK): its per-thread row is
+#: templated on k for 1..8 (registers) and on a capacity of 16, 32 or 41
+#: above (local memory)
+K_MAX = N_FEATURES
 
 _SOURCE = "tick_step.cu"
 
@@ -163,7 +164,7 @@ def _hop_round(st: TickState, verdicts, h, regs, complete, dev, *,
     rec_rows, lo_rows, hi_rows = st.recircs[h], st.win_lo[h], st.win_hi[h]
     action = _dense_traverse(regs, sid_rows, dev)
     neg = torch.full_like(sid_rows, -1)
-    sid2, done2, labels, rec2, exit_p = _hop_update(
+    sid2, done2, labels, rec2, exit_p = _ref.hop_update(
         (sid_rows, ~complete, neg, rec_rows, neg), p_rows, action,
         n_subtrees)
     exited = complete & done2

@@ -41,8 +41,12 @@ Execution knobs come from :class:`repro_torch.core.inference.EngineOptions`:
 ``impl=None`` is ``cuda`` on a CUDA engine and ``fused`` on a CPU one;
 ``fused`` runs the plain PyTorch versions, ``cuda`` the kernels (the
 tick kernel in the fused engine; the fold kernel and the range-match
-kernel behind the SID dispatch in the legacy engine and the spill walk);
-``block_b`` is the SID dispatch's block size.  Every route gives the
+kernel behind the SID dispatch in the legacy engine; the hop kernel in
+the spill walk, ``Engine.run``); ``block_b`` is the legacy engine's SID
+dispatch block size.  The tick kernel takes up to
+``kernels.tick_step.K_MAX`` (= ``N_FEATURES``, 41) slots a subtree, every
+k the JAX server serves; a server on the card with a wider model fails at
+construction.  Every route gives the
 verdicts of ``Engine.run`` on the offline windows, bit for bit: the flow
 table can only change *when* a verdict is computed, never its value.
 """
@@ -54,7 +58,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.features import PKT_IAT, PKT_NFIELDS
-from repro_torch.core.inference import Engine, EngineOptions, _hop_update
+from repro_torch.core.inference import Engine, EngineOptions
 from repro_torch.flows.windows import window_bounds
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import tick_step as _tick
@@ -356,7 +360,7 @@ def _hop_rank(acc, seen, slots, sid_rows, p_rows, rec_rows, dev, *,
     """One recirculation hop for the slots whose window just completed.
 
     Finalize the folded registers, traverse the active subtree, and run
-    the walk's own ``_hop_update`` with this batch's per-flow partition
+    the walk's own ``hop_update`` with this batch's per-flow partition
     indices; the hopped rows are re-initialised in place for their
     post-hop SID (exited rows too: their slots are freed host-side).
     Returns ``(labels, done, sid, recircs, exit_partition)``.
@@ -371,8 +375,8 @@ def _hop_rank(acc, seen, slots, sid_rows, p_rows, rec_rows, dev, *,
     carry = (sid_rows, torch.zeros(sid_rows.shape, dtype=torch.bool,
                                    device=sid_rows.device),
              neg, rec_rows, neg)
-    sid2, done, labels, rec2, exit_p = _hop_update(carry, p_rows, action,
-                                                   n_subtrees)
+    sid2, done, labels, rec2, exit_p = _ref.hop_update(carry, p_rows,
+                                                       action, n_subtrees)
     acc[s], seen[s] = _ref.feature_state_init(
         dev.slot_op[sid2.to(torch.int64)])
     return labels, done, sid2, rec2, exit_p
@@ -433,11 +437,17 @@ class FlowTableServer:
         self._dev = engine.tables.dev
         self._rank_floor = int(rank_floor)
         self._cuda, self._block_b = _resolve_exec(engine, self.options)
+        k = self._dev.slot_op.shape[1]
+        if self._cuda and tick_engine == "fused" and k > _tick.K_MAX:
+            raise ValueError(
+                f"the tick kernel takes k up to K_MAX = {_tick.K_MAX} "
+                f"feature slots a subtree, this model has k = {k}; use "
+                "tick_engine='legacy' or options=EngineOptions("
+                "impl='fused')")
         self.tick_engine = tick_engine
         # spilled flows run the batch walk on the same route
         self._spill_options = EngineOptions(
-            impl="cuda" if self._cuda else "fused",
-            block_b=self._block_b if self._cuda else None)
+            impl="cuda" if self._cuda else "fused")
         #: (R, C) of the last fused tick's rank-major pack
         self.last_tick_shape: tuple[int, int] | None = None
 

@@ -22,7 +22,9 @@ from repro_torch.core.partition import train_partitioned_dt
 from repro_torch.device import resolve_device
 from repro_torch.flows.synthetic import make_dataset
 from repro_torch.flows.windows import window_features, window_packets
-from repro_torch.kernels import dispatch, dt_traverse, feature_window, ref
+from repro_torch.kernels import (
+    dispatch, dt_traverse, engine_hop, feature_window, ref,
+)
 from repro_torch.kernels.ops import cuda_step
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -271,6 +273,60 @@ def test_tick_step_kernel_refuses_cpu_tensors_and_wide_k():
     assert vm.shape == (4,) and int(vm.sum()) == 0
 
 
+@pytest.mark.parametrize("k", [9, 16, 17, 41])
+def test_tick_step_kernel_takes_every_k_up_to_k_max(k):
+    """k = 9 .. K_MAX (= N_FEATURES) passes the tick wrapper's k check:
+    with CPU tensors the refusal is the CUDA one, not the k one."""
+    from repro_torch.kernels import tick_step as tk
+    assert tk.K_MAX == F.N_FEATURES == 41
+    st, slots, pkt, dev = _tiny_tick(k)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        tk.tick_step_kernel(st, slots, pkt, dev, n_subtrees=1)
+
+
+def test_card_server_refuses_k_above_k_max_at_construction():
+    """A server whose tick engine would launch the tick kernel with k
+    above K_MAX fails when it is built, naming the limit; the legacy tick
+    engine and the plain route take the same model."""
+    from repro_torch.core.inference import EngineTables
+    from repro_torch.kernels import tick_step as tk
+    from repro_torch.serve import FlowTableServer
+    _, _, _, dev = _tiny_tick(tk.K_MAX + 1)
+    tables = EngineTables(dev=dev, n_subtrees=1, n_partitions=3,
+                          n_classes=2)
+    # the check runs before anything touches the card
+    card_eng = Engine(tables=tables, device=torch.device("cuda"))
+    with pytest.raises(ValueError, match=f"K_MAX = {tk.K_MAX}"):
+        FlowTableServer(card_eng)
+    cpu_eng = Engine(tables=tables, device=torch.device("cpu"))
+    FlowTableServer(cpu_eng)
+    FlowTableServer(cpu_eng, tick_engine="legacy")
+
+
+def test_hop_kernel_wrapper_refuses_cpu_tensors(tiny_model):
+    """The hop kernel takes CUDA tensors only; its plain in-place version
+    takes the same arguments on the CPU."""
+    ds, _, pdt = tiny_model
+    eng = Engine.from_model(pdt, device="cpu")
+    pk = torch.from_numpy(window_packets(ds, 2))
+    B = pk.shape[0]
+    carry = (torch.zeros(B, dtype=torch.int32),
+             torch.zeros(B, dtype=torch.bool),
+             torch.full((B,), -1, dtype=torch.int32),
+             torch.zeros(B, dtype=torch.int32),
+             torch.full((B,), -1, dtype=torch.int32))
+    before = engine_hop.launches
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        engine_hop.engine_hop_kernel(pk[:, 0], carry, eng.tables.dev, 0,
+                                     n_subtrees=eng.tables.n_subtrees)
+    regs = torch.empty(B, eng.tables.dev.slot_op.shape[1])
+    engine_hop.engine_hop_plain(pk[:, 0], carry, eng.tables.dev, 0,
+                                n_subtrees=eng.tables.n_subtrees,
+                                regs_out=regs)
+    assert engine_hop.launches == before
+    assert int(carry[3].sum()) + int(carry[1].sum()) == B  # every flow hopped
+
+
 def test_tick_pack_puts_each_slot_in_one_column():
     """The fused server's pack, over random ticks: every real slot lies
     in exactly ONE column and alone there (the tick kernel's
@@ -384,7 +440,13 @@ def card():
 
 def _card_window_inputs(device, B: int, W: int, k: int, P: int = 3):
     """Packets (B, P, W, F) with every op/predicate code and empty
-    windows, made on the card from a seed; returns the hop-1 view."""
+    windows, made on ``device`` from a seed; returns the hop-1 view and
+    (B, k) slot rows."""
+    pk, rows = _window_tensor(device, B, W, k, P)
+    return pk[:, 1], rows
+
+
+def _window_tensor(device, B: int, W: int, k: int, P: int):
     g = torch.Generator(device=device).manual_seed(B + W + k)
     u = lambda *s: torch.rand(*s, generator=g, device=device)
     pk = torch.zeros(B, P, W, F.PKT_NFIELDS, device=device)
@@ -403,7 +465,7 @@ def _card_window_inputs(device, B: int, W: int, k: int, P: int = 3):
     rows = (ri(F.N_OPS), ri(F.PKT_NFIELDS + 1), ri(F.N_PREDS),
             torch.where(u(B, k) < 0.5, torch.finfo(torch.float32).max,
                         u(B, k)))
-    return pk[:, 1], rows
+    return pk, rows
 
 
 @pytest.mark.gpu
@@ -415,6 +477,78 @@ def test_feature_window_kernel_equals_plain_on_card(card, B, k):
     torch.cuda.synchronize()
     assert feature_window.launches == before + 1
     assert torch.equal(got, ref.feature_window_ref(pkts, *rows))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4, 8, 9, 41])
+@pytest.mark.parametrize("W", [1, 64, 65])
+def test_feature_window_kernel_shapes_on_card(card, k, W):
+    """Kernel A over the window walk's geometries: strided hop views of
+    one to 65 packets, tiles of 256 // k flows, B no multiple of any."""
+    pkts, rows = _card_window_inputs(card, 5003, W, k)
+    assert not pkts.is_contiguous()
+    got = feature_window.feature_window_kernel(pkts, *rows)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.feature_window_ref(pkts, *rows))
+
+
+def _hop_inputs(device, B: int, W: int, k: int, S: int = 30, T: int = 8,
+                L: int = 8):
+    """A hop view, random subtree tables and a mid-walk carry (SIDs over
+    [0, S) and -1, a third of the flows done), made on the CPU from a
+    seed, so the walk they give is the same on every machine, and moved
+    to ``device``."""
+    from repro_torch.kernels.ops import DeviceTables
+    pk, _ = _window_tensor("cpu", B, W, k, 3)
+    pkts = pk.to(device)[:, 1]
+    g = torch.Generator().manual_seed(7 * B + W + k)
+    u = lambda *s: torch.rand(*s, generator=g)
+    ri = lambda hi, *s: torch.floor(hi * u(*s)).to(torch.int32)
+    thr = torch.where(u(S, k, T) < 0.5, torch.floor(100 * u(S, k, T)),
+                      torch.floor(3000 * u(S, k, T)) - 1000)
+    thr = torch.sort(thr, dim=2).values
+    thr[:, :, T - 2:] = float("inf")
+    full = u(S, L, k) < 1 - 0.5 / k
+    lo = torch.where(full, 0, ri(3, S, L, k)).to(torch.int32)
+    hi = torch.where(full, T, lo + ri(T, S, L, k)).to(torch.int32)
+    dev = DeviceTables(
+        ri(F.N_OPS, S, k), ri(F.PKT_NFIELDS + 1, S, k), ri(F.N_PREDS, S, k),
+        torch.where(u(S, k) < 0.5, torch.finfo(torch.float32).max,
+                    u(S, k)),
+        thr, lo, hi, ri(S + 4, S, L), (u(S, L) < 0.9).to(torch.int32))
+    done = u(B) < 0.3
+    carry = (ri(S + 1, B) - 1, done,
+             torch.where(done, ri(4, B), -1).to(torch.int32), ri(3, B),
+             torch.where(done, ri(3, B), -1).to(torch.int32))
+    return (pkts, DeviceTables(*(t.to(device) for t in dev)),
+            tuple(t.to(device) for t in carry))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4, 8, 9, 41])
+@pytest.mark.parametrize("W", [1, 64, 65])
+def test_hop_kernel_equals_engine_hop_ref_on_card(card, k, W):
+    """Three hops from a mid-walk carry: the hop kernel in place on one
+    copy, ``engine_hop_ref`` on another; every carry field and the
+    registers with ``torch.equal``, hop after hop."""
+    S = 30
+    pkts, dev, carry = _hop_inputs(card, 5003, W, k, S=S)
+    assert (carry[0] == -1).any() and carry[1].any()
+    got = tuple(t.clone() for t in carry)
+    want = carry
+    for p in range(3):
+        regs = torch.empty(pkts.shape[0], k, device=card)
+        before = engine_hop.launches
+        engine_hop.engine_hop_kernel(pkts, got, dev, p, n_subtrees=S,
+                                     regs_out=regs)
+        want, want_regs = ref.engine_hop_ref(pkts, want, dev, p, S)
+        torch.cuda.synchronize()
+        assert engine_hop.launches == before + 1
+        assert torch.equal(regs, want_regs), p
+        for name, a, b in zip(("sid", "done", "labels", "recircs", "exit_p"),
+                              got, want):
+            assert torch.equal(a, b), (p, name)
+    assert want[1].sum() > carry[1].sum() and (want[3] > carry[3]).any()
 
 
 @pytest.mark.gpu
@@ -464,6 +598,34 @@ def test_engine_cuda_equals_fused_and_oracle_on_card(card):
         np.testing.assert_array_equal(getattr(res, name), want)
         np.testing.assert_array_equal(getattr(fused, name), want)
     for a, b in zip(res.regs_trace, fused.regs_trace):
+        np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.gpu
+def test_engine_run_on_card_runs_the_hop_kernel_into_pinned_memory(card):
+    """``Engine.run`` on the card: P hop launches and no launch of kernel A
+    or B; its arrays live in pinned host memory and stay as they were when
+    the engine runs again."""
+    ds, eng = _serving_model(n_flows=900)
+    wp = window_packets(ds, 3)
+    before = (engine_hop.launches, feature_window.launches,
+              dt_traverse.launches)
+    first = eng.run(torch.from_numpy(wp).to(card))
+    assert (engine_hop.launches - before[0], feature_window.launches
+            - before[1], dt_traverse.launches - before[2]) == (3, 0, 0)
+    assert torch.from_numpy(first.labels).is_pinned()
+    kept = [a.copy() for a in (first.labels, first.recircs,
+                               first.exit_partition, *first.regs_trace)]
+    second = eng.run(wp[::-1].copy())
+    assert not np.array_equal(second.labels, first.labels)
+    for a, b in zip((first.labels, first.recircs, first.exit_partition,
+                     *first.regs_trace), kept):
+        np.testing.assert_array_equal(a, b)
+    fused = eng.run(wp, options=EngineOptions(impl="fused"))
+    for name in ("labels", "recircs", "exit_partition"):
+        np.testing.assert_array_equal(getattr(first, name),
+                                      getattr(fused, name))
+    for a, b in zip(first.regs_trace, fused.regs_trace):
         np.testing.assert_array_equal(a, b)
 
 
@@ -581,7 +743,7 @@ def test_cuda_server_equals_fused_server_on_card(card, tick_engine,
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [4, 1, 8])
+@pytest.mark.parametrize("k", [4, 1, 8, 9, 41])
 def test_tick_kernel_equals_rank_loop_on_card(card, k, monkeypatch):
     """Every tick of a stream with spill and timeout eviction, served by
     the kernel route: the tick kernel on the server's state equals the
