@@ -20,9 +20,14 @@ exits nonzero; nothing is caught and passed over):
    just before, read just after) must show the launches;
 3. check   -- each kernel against its plain PyTorch version on the card at
    the main path's shapes (the hop kernel against ``engine_hop_ref`` on
-   every hop of a walk from random SIDs, -1 among them, with done flows;
-   kernel A at both of its shapes), and the engine's ``cuda`` walk against
-   its ``fused`` walk, all with ``torch.equal`` (zero tolerance);
+   every hop of a walk from random SIDs, -1 among them, with done flows,
+   and in survivor mode on the survivors of that carry against the plain
+   compacted hop and ``engine_hop_ref``, done flows' register rows kept,
+   and with rows and a count out of range; kernel A at both of its shapes;
+   kernel A over every registry feature and the hop kernel on a tile of
+   subnormal packet fields, so no flush-to-zero can slip in), and the
+   engine's ``cuda`` walk against its ``fused`` walk, all with
+   ``torch.equal`` (zero tolerance);
 4. times   -- CUDA-event medians of each kernel and its plain version beside
    the least time the card could take (bytes over 3.35 TB/s), and
    ``Engine.run`` flows/s from numpy, from a device-resident tensor and
@@ -30,6 +35,19 @@ exits nonzero; nothing is caught and passed over):
    (kernel A, the SID dispatch and kernel B a hop) and the fetch alone;
    then ``profile``, one traced ``Engine.run`` of each walk with its
    device-kernel count;
+4b. compact -- early-exit compaction on each exit profile (front, uniform,
+   back): ``make_profile_dataset(profile, 6000, seed=0xD2)``, trained at
+   (3, 3, 3) and k = 4, its test windows tiled to 2^20 flows.
+   ``Engine.run(compact=True)`` (P hop launches, the P - 1 of hops 1..
+   counted in survivor mode) equals the tiled ``pdt.predict`` and the dense walk; its trace
+   equals the plain compacted walk's and the dense trace where a flow is
+   live; ``run_looped`` with and without compaction gives the same
+   verdicts and trace with one launch of kernels A and B a hop that has
+   survivors; the compacted walk replayed from a CUDA graph gives the same
+   fetch buffer.  Survivors entering each hop; CUDA-event medians of the
+   dense and compacted walks with and without the trace, of ``Engine.run``
+   from the device tensor, of each hop's kernel and of ``run_looped``,
+   beside their bounds;
 5. serve   -- live serving, the second path: ``make_dataset("d2", 2^17,
    seed=1)`` streamed by ``make_packet_stream(profile="steady",
    concurrency=65536)`` in ticks of 32,768 packets through
@@ -813,6 +831,232 @@ def lm_phases(card, smi: str, out_dir: pathlib.Path) -> dict:
             "tolerance": f"o {SCAN_O_TOL} x max(|o|,1), state {SCAN_S_TOL}"}
 
 
+def compact_phase(card) -> dict:
+    """Phase ``compact``: for each exit profile, a model trained on
+    ``make_profile_dataset(profile, 6000, seed=0xD2)`` walks its test
+    windows tiled to B_MAIN flows, dense and compacted (the hop kernel's
+    survivor mode), on the card.  Gates, each a raise: compacted verdicts
+    equal the tiled ``pdt.predict`` and the dense walk, P hop launches of
+    which P - 1 in survivor mode;
+    the compacted trace equals the plain compacted walk's and the dense
+    trace on every live (hop, flow); ``run_looped`` with and without
+    ``compact`` gives the same verdicts and trace with one launch each of
+    kernels A and B a hop that has survivors; the compacted walk captured
+    in a CUDA graph and replayed gives the same fetch buffer (a host sync
+    inside would have failed the capture).  Times: CUDA-event medians of
+    the dense and compacted walks on the device with and without the
+    trace, ``Engine.run`` from a device tensor dense and compacted, each
+    compacted hop's kernel and ``run_looped``, each beside its bound (the
+    live flows' windows and carry over 3.35 TB/s)."""
+    import torch
+
+    from repro_torch.core.inference import (
+        Engine, EngineOptions, partition_walk,
+    )
+    from repro_torch.core.partition import train_partitioned_dt
+    from repro_torch.flows.synthetic import (
+        EXIT_PROFILES, make_profile_dataset,
+    )
+    from repro_torch.flows.windows import window_features, window_packets
+    from repro_torch.kernels import dt_traverse
+    from repro_torch.kernels import engine_hop as eh
+    from repro_torch.kernels import feature_window as fw
+    from repro_torch.kernels.compaction import compact_perm
+    t_phase = time.perf_counter()
+    out = {}
+    for profile in EXIT_PROFILES:
+        t0 = time.perf_counter()
+        ds = make_profile_dataset(profile, n_flows=6000, seed=0xD2)
+        tr, te = ds.split()
+        pdt = train_partitioned_dt(window_features(tr, 3), tr.labels,
+                                   partition_sizes=[3, 3, 3], k=4)
+        wp_te = window_packets(te, 3)
+        reps = -(-B_MAIN // wp_te.shape[0])
+        tile = lambda a: np.tile(a, (reps,) + (1,) * (a.ndim - 1))[:B_MAIN]
+        x = torch.from_numpy(tile(wp_te)).to(card)      # (B, P, W, 6)
+        oracle = [tile(a) for a in pdt.predict(
+            window_features(te, 3, device="cpu"), return_trace=True)]
+        eng = Engine.from_model(pdt)
+        dev = eng.tables.dev
+        B, P, W = x.shape[0], eng.tables.n_partitions, x.shape[2]
+        k = dev.slot_op.shape[1]
+        S = dev.slot_op.shape[0]
+        setup_s = time.perf_counter() - t0
+        comp_opt = EngineOptions(compact=True)
+
+        dense = eng.run(x)
+        eh.launches = eh.survivor_launches = 0
+        comp = eng.run(x, options=comp_opt)
+        hop_launches, survivor_launches = eh.launches, eh.survivor_launches
+        check(hop_launches == P and survivor_launches == P - 1,
+              f"{profile}: P hop launches in a compacted run, P - 1 of "
+              f"them in survivor mode, got {hop_launches} and "
+              f"{survivor_launches}")
+        for name, want in zip(("labels", "recircs", "exit_partition"),
+                              oracle):
+            got = getattr(comp, name)
+            check(np.array_equal(got, want),
+                  f"{profile}: compact {name} == pdt.predict")
+            check(np.array_equal(got, getattr(dense, name)),
+                  f"{profile}: compact {name} == dense")
+        exits = comp.exit_partition
+        live = [((exits < 0) | (exits >= p)) for p in range(P)]
+        survivors = [int(m.sum()) for m in live]
+        plain = eng.run(x, options=EngineOptions(impl="fused", compact=True))
+        for p in range(P):
+            c, d = comp.regs_trace[p], dense.regs_trace[p]
+            check(np.array_equal(c.view(np.int32),
+                                 plain.regs_trace[p].view(np.int32)),
+                  f"{profile}: compact trace == plain compacted, hop {p}")
+            check(np.array_equal(c[live[p]].view(np.int32),
+                                 d[live[p]].view(np.int32))
+                  and not c[~live[p]].any(),
+                  f"{profile}: compact trace == dense where live, hop {p}")
+
+        looped = {}
+        for compact in (False, True):
+            a0, b0 = fw.launches, dt_traverse.launches
+            res = eng.run_looped(x, options=EngineOptions(compact=compact))
+            la, lb = fw.launches - a0, dt_traverse.launches - b0
+            want_hops = (sum(n > 0 for n in survivors) if compact else P)
+            check(la == lb == want_hops,
+                  f"{profile}: run_looped(compact={compact}) launches one "
+                  f"kernel A and one kernel B a hop with survivors, got "
+                  f"{la}, {lb} for {want_hops}")
+            ref_res = comp if compact else dense
+            for name in ("labels", "recircs", "exit_partition"):
+                check(np.array_equal(getattr(res, name),
+                                     getattr(ref_res, name)),
+                      f"{profile}: run_looped(compact={compact}) {name}")
+            for a, b in zip(res.regs_trace, ref_res.regs_trace):
+                check(np.array_equal(a.view(np.int32), b.view(np.int32)),
+                      f"{profile}: run_looped(compact={compact}) trace")
+            looped[f"compact={compact}"] = {"feature_window": la,
+                                            "dt_traverse": lb}
+
+        walk_kw = dict(n_subtrees=eng.tables.n_subtrees, n_partitions=P,
+                       hop=eh.engine_hop_kernel)
+        walk = lambda compact, trace: partition_walk(
+            x, dev, with_trace=trace, compact=compact, **walk_kw)
+        want_buf = walk(True, True)
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, capture_error_mode="relaxed"):
+            graph_buf = walk(True, True)
+        g.replay()
+        torch.cuda.synchronize()
+        check(torch.equal(graph_buf, want_buf),
+              f"{profile}: the compacted walk replayed from a CUDA graph "
+              f"== the launched walk")
+        del g, graph_buf, want_buf
+
+        # least traffic of a hop over its live flows: their windows, the
+        # carry read and written (17 bytes a flow each way), the registers
+        # written, the tables; the compacted hops also read the survivor
+        # rows of the permutation
+        table_bytes = sum(t.numel() * t.element_size() for t in dev)
+
+        def hop_bytes(n, compacted):
+            return (n * W * 6 * 4 + n * 17 * 2 + n * k * 4 + table_bytes
+                    + (n * 4 if compacted else 0))
+
+        T, L = dev.thresholds.shape[2], dev.leaf_lo.shape[1]
+
+        def hop_ops(n):
+            return n * k * W * 6 + n * (k * T + 2 * L * k)
+
+        bound = lambda ns, c: sum(bound_ms(hop_bytes(n, c and p > 0),
+                                           hop_ops(n))[0]
+                                  for p, n in enumerate(ns))
+        # "_ms" of a launched call: CUDA events around it, so the host's
+        # launch work is in it where the device waits on the host;
+        # "_graph_ms": the same work replayed from a CUDA graph, device
+        # time alone
+        times = {
+            "walk_dense_trace_graph_ms": graph_ms(lambda: walk(False, True),
+                                                  10),
+            "walk_compact_trace_graph_ms": graph_ms(lambda: walk(True, True),
+                                                    10),
+            "walk_dense_no_trace_graph_ms": graph_ms(
+                lambda: walk(False, False), 10),
+            "walk_compact_no_trace_graph_ms": graph_ms(
+                lambda: walk(True, False), 10),
+            "walk_dense_trace_ms": cuda_ms(lambda: walk(False, True)),
+            "walk_dense_no_trace_ms": cuda_ms(lambda: walk(False, False)),
+            "walk_compact_trace_ms": cuda_ms(lambda: walk(True, True)),
+            "walk_compact_no_trace_ms": cuda_ms(lambda: walk(True, False)),
+            "walk_dense_bound_ms": bound([B] * P, False),
+            "walk_compact_bound_ms": bound(survivors, True),
+            "engine_run_dense_s": host_s(lambda: eng.run(x), reps=10),
+            "engine_run_compact_s": host_s(
+                lambda: eng.run(x, options=comp_opt), reps=10),
+            "engine_run_dense_no_trace_s": host_s(
+                lambda: eng.run(x, with_trace=False), reps=10),
+            "engine_run_compact_no_trace_s": host_s(
+                lambda: eng.run(x, with_trace=False, options=comp_opt),
+                reps=10),
+            "run_looped_compact_s": host_s(
+                lambda: eng.run_looped(x, options=comp_opt), reps=3),
+            "run_looped_dense_s": host_s(lambda: eng.run_looped(x), reps=3),
+        }
+
+        # each hop's kernel alone, from the carry the walk hands it: the
+        # carry is restored before each call, outside the events
+        carry = (torch.zeros(B, dtype=torch.int32, device=card),
+                 torch.zeros(B, dtype=torch.bool, device=card),
+                 torch.full((B,), -1, dtype=torch.int32, device=card),
+                 torch.zeros(B, dtype=torch.int32, device=card),
+                 torch.full((B,), -1, dtype=torch.int32, device=card))
+        regs = torch.zeros(B, k, device=card)
+        hops = []
+        for p in range(P):
+            kw = {}
+            if p:
+                rows, n_active = compact_perm(carry[1])
+                kw = dict(rows=rows, n_active=n_active)
+            saved = tuple(t.clone() for t in carry)
+            work = tuple(t.clone() for t in carry)
+
+            def restore():
+                for dst, src in zip(work, saved):
+                    dst.copy_(src)
+
+            def call():
+                eh.engine_hop_kernel(x[:, p], work, dev, p,
+                                     n_subtrees=eng.tables.n_subtrees,
+                                     regs_out=regs, **kw)
+
+            call_ms = cuda_ms_after(restore, call)
+            restore_ms = graph_ms(restore, 20)
+            ms = graph_ms(lambda: (restore(), call()), 20) - restore_ms
+            hb, ho = hop_bytes(survivors[p], bool(p)), hop_ops(survivors[p])
+            b_ms, b_by = bound_ms(hb, ho)
+            hops.append({"hop": p, "mode": "survivors" if p else "dense",
+                         "survivors": survivors[p], "ms": ms,
+                         "call_ms": call_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "bytes": hb})
+            eh.engine_hop_kernel(x[:, p], carry, dev, p,
+                                 n_subtrees=eng.tables.n_subtrees, **kw)
+        check(int((~carry[1]).sum()) == survivors[P - 1] - int(
+            (exits == P - 1).sum()), f"{profile}: the timed hops' carry")
+        out[profile] = {
+            "B": B, "P": P, "W": W, "S": S, "k": k,
+            "tensor_bytes": x.numel() * 4, "setup_s": setup_s,
+            "survivors_entering_hop": survivors,
+            "live_fraction": [n / B for n in survivors],
+            "exits_at_hop": [int((exits == p).sum()) for p in range(P)],
+            "n_unterminated": comp.n_unterminated,
+            "hop_launches_compact": hop_launches,
+            "survivor_launches_compact": survivor_launches,
+            "run_looped_launches": looped,
+            "verdicts_equal_predict_and_dense": True,
+            "trace_equal_plain_compacted": True, "graph_replay_equal": True,
+            "hops": hops, **times}
+        del x, dense, comp, plain, eng, carry, regs, work, saved
+        torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -823,8 +1067,9 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    from repro_torch.core.features import PKT_IAT, PKT_SIZE, PKT_TS
     from repro_torch.core.inference import (
-        Engine, EngineOptions, WalkBackend, fetch, partition_walk, step_hop,
+        Engine, EngineOptions, WalkBackend, fetch, partition_walk,
     )
     from repro_torch.core.partition import train_partitioned_dt
     from repro_torch.core.tree import macro_f1
@@ -839,6 +1084,8 @@ def main() -> int:
     from repro_torch.kernels import engine_hop as eh
     from repro_torch.kernels import feature_window as fw
     from repro_torch.kernels import tick_step as tk
+    from repro_torch.kernels.compaction import compact_perm
+    from repro_torch.kernels.engine_hop import step_hop
     from repro_torch.obs import reset_spans, span_totals
     from repro_torch.serve import FlowTableServer, StreamVerdicts
 
@@ -995,6 +1242,91 @@ def main() -> int:
           and hop_walk["done_after"] > hop_walk["done_before"],
           f"the checked walk reads row S - 1 and exits flows: {hop_walk}")
 
+    # the hop kernel's survivor mode on a random survivor subset (SID -1
+    # among the survivors): the kernel in place on one copy of the carry,
+    # the plain compacted hop on another, engine_hop_ref on every flow
+    # for the survivors' rows; done flows keep their carry and their
+    # register rows, which start at a fill no hop writes
+    fill = 3.5
+    rows_s, n_s = compact_perm(done0)
+    got_s, plain_s = (tuple(t.clone() for t in carry0) for _ in range(2))
+    regs_s = torch.full((B_MAIN, k), fill, device=card)
+    regs_sp = torch.full((B_MAIN, k), fill, device=card)
+    eh.engine_hop_kernel(x[:, 1], got_s, dev, 1, n_subtrees=n_sub,
+                         regs_out=regs_s, rows=rows_s, n_active=n_s)
+    eh.engine_hop_plain(x[:, 1], plain_s, dev, 1, n_subtrees=n_sub,
+                        regs_out=regs_sp, rows=rows_s, n_active=n_s)
+    dense_s, regs_sd = ref.engine_hop_ref(x[:, 1], carry0, dev, 1, n_sub)
+    live0 = ~done0
+    err_hop = max(err_hop, compare("engine_hop[survivors].regs", regs_s,
+                                   regs_sp))
+    compare("engine_hop[survivors].regs == dense on survivors",
+            regs_s[live0], regs_sd[live0])
+    compare("engine_hop[survivors].regs of done flows", regs_s[done0],
+            torch.full_like(regs_s[done0], fill))
+    carry_names = ("sid", "done", "labels", "recircs", "exit_p")
+    for name, a, b, c in zip(carry_names, got_s, plain_s, dense_s):
+        compare(f"engine_hop[survivors].{name}", a, b)
+        compare(f"engine_hop[survivors].{name} == dense", a, c)
+    # survivor inputs out of range: a count above B reads as B (every
+    # position holds a flow, done ones too) and a row outside [0, B)
+    # leaves its position empty; the named flows get the dense hop, the
+    # dropped ones keep their carry and the fill
+    dropped = torch.randperm(B_MAIN, generator=g, device=card)[:1000]
+    rows_b = rows_s.clone()
+    rows_b[dropped[:500]] = -7
+    rows_b[dropped[500:]] = B_MAIN + 3
+    named = torch.ones(B_MAIN, dtype=torch.bool, device=card)
+    named[rows_s[dropped].long()] = False
+    got_b = tuple(t.clone() for t in carry0)
+    regs_b = torch.full((B_MAIN, k), fill, device=card)
+    eh.engine_hop_kernel(
+        x[:, 1], got_b, dev, 1, n_subtrees=n_sub, regs_out=regs_b,
+        rows=rows_b, n_active=torch.full((1,), B_MAIN + 100,
+                                         dtype=torch.int32, device=card))
+    compare("engine_hop[rows out of range].regs of named flows",
+            regs_b[named], regs_sd[named])
+    compare("engine_hop[rows out of range].regs of dropped flows",
+            regs_b[~named], torch.full_like(regs_b[~named], fill))
+    for name, a, c, o in zip(carry_names, got_b, dense_s, carry0):
+        compare(f"engine_hop[rows out of range].{name}", a,
+                torch.where(named, c, o))
+    survivor_check = {"survivors": int(n_s),
+                      "sid_minus_one_among_them": int(
+                          (carry0[0][live0] == -1).sum())}
+    check(survivor_check["sid_minus_one_among_them"] > 0,
+          f"the survivors read row S - 1: {survivor_check}")
+
+    # subnormal packet fields (ROADMAP C.2): kernel A over every registry
+    # feature and the hop kernel keep them exactly as their plain versions
+    # do, so no flush-to-zero build flag can slip in unseen
+    gs = torch.Generator().manual_seed(0xC2)
+    sub_vals = torch.tensor([1e-40, -2e-40, 3e-41, -1e-45, 1.17e-38, -0.0])
+    n_tile = 1 << 16
+    x_sub = x[:n_tile].clone()
+    for fld in (PKT_TS, PKT_SIZE, PKT_IAT):
+        x_sub[..., fld] = sub_vals[torch.randint(
+            0, sub_vals.numel(), x_sub.shape[:3], generator=gs)].to(card)
+    sub41 = (x_sub[:, 0], *_all_feature_rows(n_tile, card))
+    regs41 = fw.feature_window_kernel(*sub41)
+    err_a = max(err_a, compare("feature_window[subnormal,k=41]", regs41,
+                               ref.feature_window_ref(*sub41)))
+    tiny = regs41.abs()
+    check(bool(((tiny > 0) & (tiny < torch.finfo(torch.float32).tiny))
+               .any()), "subnormal registers survive kernel A")
+    sub_c = tuple(t[:n_tile].clone() for t in carry0)
+    sub_w = tuple(t[:n_tile] for t in carry0)
+    regs_k = torch.empty(n_tile, k, device=card)
+    eh.engine_hop_kernel(x_sub[:, 1], sub_c, dev, 1, n_subtrees=n_sub,
+                         regs_out=regs_k)
+    sub_w, regs_w = ref.engine_hop_ref(x_sub[:, 1], sub_w, dev, 1, n_sub)
+    err_hop = max(err_hop, compare("engine_hop[subnormal].regs", regs_k,
+                                   regs_w))
+    for name, a, b in zip(("sid", "done", "labels", "recircs", "exit_p"),
+                          sub_c, sub_w):
+        compare(f"engine_hop[subnormal].{name}", a, b)
+    del x_sub, regs41
+
     fused = eng.run(x, options=EngineOptions(impl="fused"))
     cuda = eng.run(x, options=EngineOptions(impl="cuda"))
     for name in ("labels", "recircs", "exit_partition"):
@@ -1005,7 +1337,8 @@ def main() -> int:
     checks["engine[cuda==fused,B=2^20]"] = {"equal": True,
                                              "max_abs_err": 0.0}
     emit("check", tolerance="zero: torch.equal", comparisons=checks,
-         hop_walk=hop_walk)
+         hop_walk=hop_walk, survivor_mode=survivor_check,
+         subnormal_tile={"flows": n_tile, "values": sub_vals.tolist()})
 
     # -- 4. times -------------------------------------------------------------
     ms_a = cuda_ms(lambda: fw.feature_window_kernel(*a_args))
@@ -1042,6 +1375,13 @@ def main() -> int:
                              regs_out=regs_h)
 
     ms_hop = cuda_ms_after(restore_carry, hop_call)
+    # device time alone: restore-and-call replayed from a CUDA graph, less
+    # the restore (CUDA events around a launched call also hold the host's
+    # launch work while the device waits on it)
+    restore_carry_ms = graph_ms(restore_carry, 20)
+    graph_hop = graph_ms(lambda: (restore_carry(), hop_call()),
+                         20) - restore_carry_ms
+    graph_a = graph_ms(lambda: fw.feature_window_kernel(*a_args), 20)
     # a yardstick, no port of anything: one PyTorch reduction that reads
     # the same strided hop view once (what the view's layout lets a read
     # reach on this card)
@@ -1094,6 +1434,7 @@ def main() -> int:
     emit("times", card=smi,
          engine_hop_ms=ms_hop, engine_hop_plain_ms=plain_hop,
          engine_hop_bound_ms=bound_hop, engine_hop_bound_by=by_hop,
+         engine_hop_graph_ms=graph_hop, feature_window_graph_ms=graph_a,
          engine_hop_bytes=hop_bytes, engine_hop_ops=hop_ops,
          hop_view_read_ms=view_read_ms,
          feature_window_ms=ms_a, feature_window_plain_ms=plain_a,
@@ -1119,6 +1460,10 @@ def main() -> int:
     del buf
     emit("profile", card=smi, hop_walk=profile_run(lambda: eng.run(x)),
          two_kernel_walk=profile_run(lambda: two_kernel.run(eng, x)))
+
+    # -- 4b. early-exit compaction on each exit profile ----------------------
+    compact_out = compact_phase(card)
+    emit("compact", card=smi, **compact_out)
 
     # -- 5. live serving through the flow table ------------------------------
     t0 = time.perf_counter()
@@ -1544,10 +1889,19 @@ def main() -> int:
                      "src/repro/core/inference.py:237 with its _hop_update",
          "launches": launches["engine_hop"],
          "launches_path": "main: Engine.run, one per partition",
-         "max_abs_err": err_hop, "ms": ms_hop, "plain_ms": plain_hop,
+         "max_abs_err": err_hop, "ms": ms_hop, "graph_ms": graph_hop,
+         "plain_ms": plain_hop,
          "bound_ms": bound_hop, "bound_by": by_hop, "library_ms": None,
          "shape": f"B={B_MAIN},W={W},k={k},S={S},T={T},L={L}",
-         "equal": True},
+         "equal": True,
+         "survivor_mode": {
+             prof: {"shape": f"B={c['B']},W={c['W']},k={c['k']},"
+                             f"S={c['S']}, survivors "
+                             f"{c['survivors_entering_hop'][1:]}",
+                    "launches_per_compacted_run":
+                        c["survivor_launches_compact"],
+                    "hops": [h for h in c["hops"] if h["hop"]]}
+             for prof, c in compact_out.items() if prof != "phase_s"}},
         {"name": "feature_window", "route": "cuda",
          "source": "src/repro_torch/csrc/feature_window.cu",
          "replaces": "src/repro/kernels/feature_window.py:115",
@@ -1555,9 +1909,12 @@ def main() -> int:
          "launches_path": "main: window_features (k = 41); Engine.run "
                           "runs the hop kernel",
          "max_abs_err": err_a,
-         "ms": ms_a, "plain_ms": plain_a, "bound_ms": bound_a,
-         "bound_by": by_a, "library_ms": None,
+         "ms": ms_a, "graph_ms": graph_a, "plain_ms": plain_a,
+         "bound_ms": bound_a, "bound_by": by_a, "library_ms": None,
          "shape": f"B={B_MAIN},W={W},k={k}", "equal": True,
+         "run_looped_launches": {
+             prof: c["run_looped_launches"]
+             for prof, c in compact_out.items() if prof != "phase_s"},
          "training_shape": {
              "shape": f"B={tr.n_flows},W={xtr.shape[2]},k=41",
              "ms": ms_a41, "plain_ms": plain_a41, "bound_ms": bound_a41,
@@ -1569,6 +1926,9 @@ def main() -> int:
          "launches_path": "serve_check: the legacy tick engine, cuda route "
                           "(0 in Engine.run since the hop kernel)",
          "main_launches": launches["dt_traverse"], "max_abs_err": err_b,
+         "run_looped_launches": {
+             prof: c["run_looped_launches"]
+             for prof, c in compact_out.items() if prof != "phase_s"},
          "ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b,
          "bound_by": by_b, "library_ms": None,
          "shape": f"nb={nb},bb={bb},S={S},k={k},T={T},L={L}",

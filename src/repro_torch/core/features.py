@@ -21,10 +21,14 @@ Packet record layout (dense, one row per packet):
 
 The codes here are the contract between the host tables and the CUDA
 feature kernel (``csrc/feature_window.cu`` repeats them as constants).
+:func:`compute_feature` is the numpy oracle of one feature over a window
+(docs/PARITY.md names it first); the resource model reads
+:func:`max_dep_depth`.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Sequence
 
 import numpy as np
 
@@ -158,3 +162,69 @@ N_FEATURES = len(REGISTRY)          # 41, matching D1's N in the paper
 FEATURE_TABLE = np.asarray(
     [[s.op, s.field, s.pred, s.dep_depth] for s in REGISTRY], dtype=np.int32
 )
+
+
+def max_dep_depth(fids: Sequence[int]) -> int:
+    """Dependency-chain depth needed by a feature subset (paper: <= 3)."""
+    if len(fids) == 0:
+        return 0
+    return int(max(REGISTRY[f].dep_depth for f in fids))
+
+
+def predicate_mask(pkts: np.ndarray, pred: int) -> np.ndarray:
+    """Evaluate a predicate over packets ``(..., PKT_NFIELDS)`` -> bool."""
+    valid = pkts[..., PKT_VALID] > 0
+    if pred == PRED_TRUE:
+        return valid
+    if pred == PRED_FWD:
+        return valid & (pkts[..., PKT_DIR] == 0)
+    if pred == PRED_BWD:
+        return valid & (pkts[..., PKT_DIR] == 1)
+    flag = dict(PRED_FLAGS)[pred]
+    return valid & ((pkts[..., PKT_FLAGS].astype(np.int64) & flag) > 0)
+
+
+def compute_feature(pkts: np.ndarray, spec: FeatureSpec) -> np.ndarray:
+    """Reference (offline) computation of one feature over a window.
+
+    ``pkts``: (..., W, PKT_NFIELDS).  Returns (...,) float32.  This is the
+    oracle the engine, its plain versions and the kernels must match.
+    """
+    mask = predicate_mask(pkts, spec.pred)
+    field = pkts[..., spec.field].astype(np.float64)
+    if spec.op == OP_COUNT:
+        out = mask.sum(axis=-1)
+    elif spec.op == OP_SUM:
+        out = np.where(mask, field, 0.0).sum(axis=-1)
+    elif spec.op == OP_MAX:
+        out = np.where(mask, field, -np.inf).max(axis=-1, initial=-np.inf)
+        out = np.where(np.isfinite(out), out, 0.0)
+    elif spec.op == OP_MIN:
+        out = np.where(mask, field, np.inf).min(axis=-1, initial=np.inf)
+        out = np.where(np.isfinite(out), out, spec.init_value)
+    elif spec.op == OP_LAST:
+        idx = _last_true_index(mask)
+        out = np.where(idx >= 0, np.take_along_axis(
+            field, np.maximum(idx, 0)[..., None], axis=-1)[..., 0], 0.0)
+    elif spec.op == OP_FIRST:
+        idx = _first_true_index(mask)
+        out = np.where(idx >= 0, np.take_along_axis(
+            field, np.maximum(idx, 0)[..., None], axis=-1)[..., 0], 0.0)
+    elif spec.op == OP_SUMSQ:
+        out = np.where(mask, field * field, 0.0).sum(axis=-1)
+    else:
+        raise ValueError(f"unknown op {spec.op}")
+    return out.astype(np.float32)
+
+
+def _first_true_index(mask: np.ndarray) -> np.ndarray:
+    any_ = mask.any(axis=-1)
+    idx = mask.argmax(axis=-1)
+    return np.where(any_, idx, -1)
+
+
+def _last_true_index(mask: np.ndarray) -> np.ndarray:
+    rev = mask[..., ::-1]
+    any_ = mask.any(axis=-1)
+    idx = mask.shape[-1] - 1 - rev.argmax(axis=-1)
+    return np.where(any_, idx, -1)

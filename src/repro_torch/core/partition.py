@@ -22,7 +22,7 @@ import dataclasses
 import numpy as np
 
 from repro_torch.core import tree as tree_lib
-from repro_torch.core.features import REGISTRY
+from repro_torch.core.features import REGISTRY, max_dep_depth
 from repro_torch.core.tree import Tree, train_tree
 
 EXIT = -1  # leaf routing value: emit class label
@@ -51,13 +51,23 @@ class PartitionedDT:
     n_classes: int
     n_features: int
 
-    # ---- structure queries ---------------------------------------------
+    # ---- structure queries (drive the resource model) ----------------
     @property
     def n_partitions(self) -> int:
         return len(self.partition_sizes)
 
     def sids_in_partition(self, p: int) -> list[int]:
         return [s.sid for s in self.subtrees if s.partition == p]
+
+    def unique_features(self) -> np.ndarray:
+        if not self.subtrees:
+            return np.zeros(0, dtype=np.int64)
+        return np.unique(np.concatenate([s.used_features
+                                         for s in self.subtrees]))
+
+    def dep_depth(self) -> int:
+        return max((max_dep_depth(s.used_features) for s in self.subtrees),
+                   default=0)
 
     # ---- reference inference (numpy oracle) ---------------------------
     def predict(self, X_windows: np.ndarray,

@@ -87,6 +87,9 @@ class Tree:
             active = self.feature[node] >= 0
         return node
 
+    def predict(self, X: np.ndarray) -> np.ndarray:
+        return self.value[self.apply(X)].argmax(axis=1)
+
 
 # ---------------------------------------------------------------------------
 # binning
@@ -283,6 +286,33 @@ def train_tree(
         value=np.stack(value).astype(np.float32),
         n_classes=C,
     )
+
+
+def feature_importance(X: np.ndarray, y: np.ndarray, *, max_depth: int = 12,
+                       n_classes: int | None = None) -> np.ndarray:
+    """Impurity-based importances from one unconstrained tree (used by the
+    top-k baselines to pick their global feature set)."""
+    t = train_tree(X, y, max_depth=max_depth, n_classes=n_classes)
+    imp = np.zeros(X.shape[1], dtype=np.float64)
+    totals = t.value.sum(axis=1)
+
+    def gini(v):
+        s = v.sum()
+        if s <= 0:
+            return 0.0
+        p = v / s
+        return 1.0 - (p ** 2).sum()
+
+    for i in range(t.n_nodes):
+        f = t.feature[i]
+        if f < 0:
+            continue
+        l, r = t.left[i], t.right[i]
+        w, wl, wr = totals[i], totals[l], totals[r]
+        imp[f] += (w * gini(t.value[i]) - wl * gini(t.value[l])
+                   - wr * gini(t.value[r]))
+    s = imp.sum()
+    return imp / s if s > 0 else imp
 
 
 def macro_f1(y_true: np.ndarray, y_pred: np.ndarray, n_classes: int) -> float:

@@ -21,9 +21,28 @@
 //           and first_hit_leaf, shared with kernel B and the tick kernel);
 //   and, unless done[b]: an action >= n_subtrees exits (labels, exit_p,
 //   done), any other recirculates (recircs + 1, sid = action).
-// Done flows still compute their registers with their frozen SID, because
-// the trace holds them.  When `trace` is given the registers are written
-// there, row p of the (P, B, k) trace inside the walk's fetch buffer.
+// In the dense walk done flows still compute their registers with their
+// frozen SID, because the trace holds them.  When `trace` is given the
+// registers are written there, row p of the (P, B, k) trace inside the
+// walk's fetch buffer.
+//
+// Survivor mode (early-exit compaction, kernels/compaction.py): with
+// `rows`, the survivor-first permutation of the walk's `done` flags, and
+// `n_active`, the survivor count, both on the device, position i < *n_active
+// of the launch is flow rows[i] and every later position is empty; a
+// count above B reads as B and a row outside [0, B) leaves its position
+// empty, so no input makes the kernel read or write out of bounds.  The
+// grid stays the dense one and CTAs past the survivors return at once, so
+// no host sync sizes the launch and the walk can be captured in a CUDA
+// graph.  A survivor's window is read in place through its flow stride:
+// it is one dense run of W x 6 floats wherever the flow lies, so the
+// cp.async staging is unchanged and no window is gathered into a new
+// buffer.  Only the named flows' carry fields and trace rows are written
+// (rows and n_active are compact_perm of the carry's done flags, so those
+// are the survivors); every other trace row is left as it is.  The walk
+// zeroes the trace rows once before the hops, so a hop's row holds zeros
+// for the flows done before it, as the plain compacted walk writes them.  Every step is per flow, so this equals the plain compacted walk
+// (and the dense walk's verdicts) bit for bit.
 //
 // What bounds it on the H100: device memory.  At B = 2^20, W = 65, k = 4 a
 // hop reads 1.64 GB of windows and ~21 MB of carry and writes ~13 MB of
@@ -31,6 +50,8 @@
 // (15,360 bytes at S = 30, T = L = 8) are read through the read-only data
 // cache and stay in L1.  No SID dispatch: each CTA matches whatever SIDs
 // its flows hold, since a flow's match reads only its own subtree's rows.
+// In survivor mode a hop reads the survivors' windows and carry only; the
+// empty CTAs cost a launch slot and one load of the count each.
 //
 // Design: a CTA owns 256 / k consecutive flows and walks them as window.cuh
 // sets out (8-byte cp.async staging, double buffered, one thread per
@@ -70,16 +91,22 @@ struct Carry {                 // (B,) each, updated in place
 __global__ void __launch_bounds__(kWindowThreads) engine_hop_kernel(
     const float* __restrict__ pkts, long long flow_stride, long long B,
     int W, int k, int flows, int chunk, int stride, int p, Tables tb,
-    Carry cy, float* __restrict__ trace) {
+    Carry cy, float* __restrict__ trace, const int* __restrict__ rows,
+    const int* __restrict__ n_active) {
   extern __shared__ __align__(16) float smem[];
   const long long b0 = (long long)blockIdx.x * flows;
+  // survivor mode: only the first *n_active positions (at most B) may
+  // hold a flow
+  const long long n = rows != nullptr ? min((long long)*n_active, B) : B;
+  if (b0 >= n) return;                    // the whole CTA, before a barrier
   const int f = threadIdx.x / k;
   const int j = threadIdx.x - f * k;
   const WindowTile t{pkts, flow_stride, b0,
-                     (int)min((long long)flows, B - b0), W, chunk, stride};
-  const bool active = f < t.n_flows;
+                     (int)min((long long)flows, n - b0), W, chunk, stride,
+                     rows, B};
+  const long long b = f < t.n_flows ? t.flow(f) : -1;
+  const bool active = b >= 0;
   int* s_marks = reinterpret_cast<int*>(smem + window_smem_floats(t, flows));
-  const long long b = b0 + f;
   long long row = 0;
   int field = 0, pred = 0;
   if (active) {
@@ -121,7 +148,8 @@ __global__ void __launch_bounds__(kWindowThreads) engine_hop_kernel(
 // The geometry comes from kernels/window.py's window_geometry; its shared
 // memory holds the staging ring, the predicate words and flows * k marks,
 // and `carveout` (percent) leaves L1 room for the copies in flight.
-// `trace` may be null.  Returns a cudaError_t.
+// `trace` may be null; `rows` and `n_active` are both null (the dense hop)
+// or both set (survivor mode).  Returns a cudaError_t.
 extern "C" int engine_hop_launch(
     const float* pkts, long long flow_stride, long long B, int W, int k,
     int flows, int chunk, int stride, int smem_bytes, int carveout, int p,
@@ -129,8 +157,11 @@ extern "C" int engine_hop_launch(
     const float* slot_init, const float* thr, const int* leaf_lo,
     const int* leaf_hi, const int* leaf_action, const int* leaf_valid, int S,
     int T, int L, int n_subtrees, int* sid, unsigned char* done, int* labels,
-    int* recircs, int* exit_p, float* trace, void* stream) {
+    int* recircs, int* exit_p, float* trace, const int* rows,
+    const int* n_active, void* stream) {
   if (B == 0) return 0;
+  if ((rows == nullptr) != (n_active == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       engine_hop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem_bytes);
@@ -145,7 +176,8 @@ extern "C" int engine_hop_launch(
   const long long blocks = (B + flows - 1) / flows;
   engine_hop_kernel<<<(unsigned)blocks, kWindowThreads, smem_bytes,
                       (cudaStream_t)stream>>>(
-      pkts, flow_stride, B, W, k, flows, chunk, stride, p, tb, cy, trace);
+      pkts, flow_stride, B, W, k, flows, chunk, stride, p, tb, cy, trace,
+      rows, n_active);
   return (int)cudaGetLastError();
 }
 

@@ -42,7 +42,8 @@ __global__ void __launch_bounds__(kWindowThreads) feature_window_kernel(
   const long long b0 = (long long)blockIdx.x * flows;
   const int f = threadIdx.x / k;
   const WindowTile t{pkts, flow_stride, b0,
-                     (int)min((long long)flows, B - b0), W, chunk, stride};
+                     (int)min((long long)flows, B - b0), W, chunk, stride,
+                     nullptr, B};
   const bool active = f < t.n_flows;
   const long long i = b0 * k + threadIdx.x;   // the pair's (B, k) index
   const int field = active ? slot_field[i] : 0;

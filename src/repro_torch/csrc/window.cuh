@@ -127,13 +127,27 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// The CTA's flows [b0, b0 + n_flows) and how they are staged.
+// The CTA's flows and how they are staged: positions [b0, b0 + n_flows)
+// of the launch, which are the flows themselves, or with `rows` the flows
+// rows[b0], rows[b0 + 1], ... (the hop kernel's survivor mode, where rows
+// is the survivor-first permutation of kernels/compaction.py).  A row
+// outside [0, n_rows) names no flow: its position stays empty, so nothing
+// is read or written out of bounds.
 struct WindowTile {
   const float* pkts;     // (B, W, 6) f32, the (W, 6) block of a flow dense
   long long flow_stride; // floats between two flows' windows (even)
-  long long b0;          // first flow of the tile
-  int n_flows;           // flows of the tile that exist (<= flows)
+  long long b0;          // first position of the tile
+  int n_flows;           // positions of the tile that may hold a flow
   int W, chunk, stride;  // packets a window, a chunk; floats a staged flow
+  const int* rows;       // position -> flow, or null for the identity
+  long long n_rows;      // with rows: the flows B it may name
+
+  // the flow at position b0 + f (f < n_flows), or -1 for an empty one
+  __device__ __forceinline__ long long flow(int f) const {
+    if (rows == nullptr) return b0 + f;
+    const long long r = rows[b0 + f];
+    return r >= 0 && r < n_rows ? r : -1;
+  }
 };
 
 // Floats walk_windows uses at the start of its shared memory.
@@ -144,8 +158,9 @@ __device__ __forceinline__ int window_smem_floats(const WindowTile& t,
 }
 
 // Walk the tile's windows.  Every thread of the CTA calls this (it
-// synchronises); a thread with `active` walks flow `f` of the tile under
-// the slot's predicate and field and returns its statistics.  `smem`
+// synchronises); a thread with `active` walks flow `f` of the tile (a
+// position that holds a flow) under the slot's predicate and field and
+// returns its statistics.  `smem`
 // (16-byte aligned) holds the ring, min(chunks, kStages) buffers of
 // flows * stride floats, then flows rows of `chunk | 1` predicate words
 // (an odd row, so the flows of a warp read distinct banks).
@@ -162,8 +177,11 @@ __device__ __forceinline__ WindowStats walk_windows(const WindowTile& t,
   const int tpf = blockDim.x / flows;
   const int sf = threadIdx.x / tpf;
   const int sr = threadIdx.x - sf * tpf;
-  const bool stager = sf < t.n_flows;
-  const float* src = t.pkts + (t.b0 + (stager ? sf : 0)) * t.flow_stride;
+  const long long sflow = sf < t.n_flows ? t.flow(sf) : -1;
+  const bool stager = sflow >= 0;
+  // a window is one dense run of W x 6 floats wherever its flow lies,
+  // so the copies are the same in survivor mode
+  const float* src = t.pkts + (stager ? sflow : t.b0) * t.flow_stride;
   float* const srow = smem + sf * t.stride;
   auto stage = [&](int c) {               // issue chunk c's copies
     if (stager) {

@@ -19,9 +19,18 @@ What bounds it on the H100: device memory, ~0.5 ms a hop at B = 2^20,
 W = 65, k = 4 (1.64 GB of windows, ~34 MB of carry, 17 MB of
 registers).  Geometry: ``kernels.window.window_geometry``.
 
+Survivor mode (early-exit compaction): given ``rows``, the permutation
+of ``kernels.compaction.compact_perm``, and ``n_active``, the device
+survivor count, the launch walks only the survivors, reading each one's
+window in place; the dense grid is launched and CTAs past the survivors
+return at once, so no host sync sizes it.  ``caps``, the plain
+version's capacity ladder, is accepted and inert there, as
+``EngineOptions.block_b`` is on the walk.
+
 :func:`engine_hop_kernel` only launches: it takes CUDA tensors and
 raises on anything else.  :func:`engine_hop_plain` is the plain version
-written into the carry in place, on any device.
+written into the carry in place, on any device: ``step_hop`` of
+``ref.fused_step``.
 """
 from __future__ import annotations
 
@@ -29,12 +38,16 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import compaction
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.ops import StepFn
 from repro_torch.kernels.window import check_window_view, window_geometry
 
 #: hop-kernel launches since the last reset (``chip_smoke.py`` zeroes it
 #: before driving the main path)
 launches = 0
+#: of those, the launches in survivor mode (with ``rows``)
+survivor_launches = 0
 
 _SOURCE = "engine_hop.cu"
 
@@ -45,7 +58,7 @@ def _lib():
     if lib.engine_hop_launch.argtypes is None:
         p, n, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.engine_hop_launch.argtypes = (
-            [p, n, n] + [i] * 8 + [p] * 9 + [i] * 4 + [p] * 6 + [p])
+            [p, n, n] + [i] * 8 + [p] * 9 + [i] * 4 + [p] * 8 + [p])
         lib.engine_hop_launch.restype = ctypes.c_int
         lib.engine_hop_error_string.argtypes = [ctypes.c_int]
         lib.engine_hop_error_string.restype = ctypes.c_char_p
@@ -63,7 +76,10 @@ def _check(name: str, x: torch.Tensor, dtype: torch.dtype, shape: tuple,
 
 def engine_hop_kernel(pkts: torch.Tensor, carry, dev, p: int, *,
                       n_subtrees: int,
-                      regs_out: torch.Tensor | None = None) -> None:
+                      regs_out: torch.Tensor | None = None,
+                      rows: torch.Tensor | None = None,
+                      n_active: torch.Tensor | None = None,
+                      caps: tuple[int, ...] | None = None) -> None:
     """Launch the hop kernel on the current stream: hop ``p`` of the walk,
     in place on ``carry``.
 
@@ -74,11 +90,18 @@ def engine_hop_kernel(pkts: torch.Tensor, carry, dev, p: int, *,
     bool; ``dev`` the engine's ``DeviceTables``; ``regs_out`` None or an
     f32 (B, k) tensor that receives the registers.  A SID of -1 reads
     table row S - 1 (a negative index); the kernel clamps any other SID
-    outside ``[0, S)`` into it and never reads out of bounds.  Raises on
-    CPU tensors, on anything else the kernel does not take and on a
-    failed launch.
+    outside ``[0, S)`` into it and never reads out of bounds.  With
+    ``rows`` (int32 (B,)) and ``n_active`` (int32, one element), both on
+    the device, the hop runs in survivor mode on flows ``rows[:n_active]``
+    only and leaves every other flow's carry and ``regs_out`` row as they
+    are; ``caps`` is not read.  ``rows`` and ``n_active`` are
+    ``compaction.compact_perm`` of the carry's ``done``, so the flows named
+    are the survivors; a count above B reads as B and a row outside
+    ``[0, B)`` names no flow.  Raises on CPU tensors, on anything else the
+    kernel does not take and on a failed launch.
     """
-    global launches
+    global launches, survivor_launches
+    del caps                          # the plain version's ladder
     check_window_view(pkts, "engine_hop_kernel")
     d = pkts.device
     B, W, _ = pkts.shape
@@ -102,6 +125,11 @@ def engine_hop_kernel(pkts: torch.Tensor, carry, dev, p: int, *,
         _check(name, x, dt, shape, d)
     if regs_out is not None:
         _check("regs_out", regs_out, f32, (B, k), d)
+    if (rows is None) != (n_active is None):
+        raise ValueError("survivor mode needs both rows and n_active")
+    if rows is not None:
+        _check("rows", rows, i32, (B,), d)
+        _check("n_active", n_active.reshape(1), i32, (1,), d)
     if B == 0:
         return
     g = window_geometry(B, W, k)
@@ -113,26 +141,45 @@ def engine_hop_kernel(pkts: torch.Tensor, carry, dev, p: int, *,
         g.stride, g.smem_bytes, g.carveout, p, *ptr(*dev), S, T, L,
         n_subtrees,
         *ptr(sid, done, labels, recircs, exit_p),
-        None if regs_out is None else regs_out.data_ptr(), stream)
+        None if regs_out is None else regs_out.data_ptr(),
+        None if rows is None else rows.data_ptr(),
+        None if n_active is None else n_active.data_ptr(), stream)
     if err != 0:
         msg = lib.engine_hop_error_string(err).decode()
         raise RuntimeError(f"engine_hop kernel launch failed: {msg}")
     launches += 1
+    if rows is not None:
+        survivor_launches += 1
 
 
-def engine_hop_plain(pkts: torch.Tensor, carry, dev, p: int, *,
-                     n_subtrees: int,
-                     regs_out: torch.Tensor | None = None) -> None:
-    """The hop kernel's plain version, in place: ``ref.engine_hop_ref``
-    written into ``carry`` (and ``regs_out``), on any device."""
-    new, regs = _ref.engine_hop_ref(pkts, carry, dev, p, n_subtrees)
-    write_hop(carry, new, regs, regs_out)
+def step_hop(step: StepFn):
+    """A walk hop from a partition stage, with :func:`engine_hop_kernel`'s
+    arguments: ``step`` on the carry's SIDs, then ``ref.hop_update``,
+    written in place (the two-kernel walk is
+    ``step_hop(ops.cuda_step(block_b))``).  With ``rows`` and ``n_active``
+    (``compaction.compact_perm`` of the carry's ``done``) ``step`` runs on
+    the survivors through the plain compacted step on the ladder ``caps``
+    (default: ``bucket_caps(B)``), and ``regs_out`` rows of done flows are
+    left as they are, as the kernel leaves them."""
+    def hop(pkts, carry, dev, p, *, n_subtrees, regs_out=None, rows=None,
+            n_active=None, caps=None):
+        if rows is None:
+            regs, action = step(pkts, carry[0], dev)
+        else:
+            regs, action = compaction.survivor_step(
+                pkts, carry[0], carry[1], dev, rows, n_active, step=step,
+                caps=caps or compaction.bucket_caps(pkts.shape[0]),
+                with_regs=regs_out is not None)
+            if regs_out is not None:
+                regs = torch.where(carry[1][:, None], regs_out, regs)
+        new = _ref.hop_update(carry, p, action, n_subtrees)
+        for dst, src in zip(carry, new):
+            dst.copy_(src)
+        if regs_out is not None:
+            regs_out.copy_(regs)
+    return hop
 
 
-def write_hop(carry, new, regs: torch.Tensor,
-              regs_out: torch.Tensor | None) -> None:
-    """Copy a functional hop's results into the walk's tensors."""
-    for dst, src in zip(carry, new):
-        dst.copy_(src)
-    if regs_out is not None:
-        regs_out.copy_(regs)
+#: the hop kernel's plain version: ``ref.engine_hop_ref`` (``fused_step``
+#: then ``hop_update``) written into the carry and ``regs_out`` in place
+engine_hop_plain = step_hop(_ref.fused_step)

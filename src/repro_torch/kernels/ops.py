@@ -7,10 +7,14 @@ the kernel runs or the call raises.
 
 The engine's walk on the card runs one hop kernel per partition
 (``kernels.engine_hop``), which reads the SID-keyed tables itself.  The
-two-kernel stage :func:`cuda_step` (kernel A on SID-gathered slot rows,
-then kernel B behind the device-side SID dispatch, ``kernels.dispatch``)
-stays callable beside it; the legacy tick engine runs kernel B through
-:func:`dt_traverse`.
+per-op routes on the engine's :class:`DeviceTables`,
+:func:`feature_window_dev` (kernel A on SID-gathered slot rows) and
+:func:`dt_traverse_dev` (kernel B behind the device-side SID dispatch,
+``kernels.dispatch``), carry the looped backend (``Engine.run_looped``)
+one op at a time, and make up the two-kernel stage :func:`cuda_step`,
+which stays callable beside the hop kernel.  :func:`feature_window` and
+:func:`dt_traverse` take host ``PackedTables`` / ``RangeExecTables`` and
+upload them per call.
 """
 from __future__ import annotations
 
@@ -97,14 +101,11 @@ def cuda_step(block_b: int = BLOCK_B) -> StepFn:
         raise ValueError(f"block_b must be positive, got {block_b}")
 
     def step(pkts: torch.Tensor, sid: torch.Tensor, dev: DeviceTables):
-        s = sid.to(torch.int64)
-        regs = feature_window_kernel(
-            pkts, dev.slot_op[s], dev.slot_field[s], dev.slot_pred[s],
-            dev.slot_init[s])
-        action = dispatch_dt_traverse(
-            regs, sid, dev.thresholds, dev.leaf_lo, dev.leaf_hi,
-            dev.leaf_action, dev.leaf_valid, block_b=block_b)
-        return regs, action
+        if pkts.device.type != "cuda":
+            raise ValueError(f"cuda_step needs CUDA tensors, got "
+                             f"{pkts.device}")
+        regs = feature_window_dev(pkts, sid, dev)
+        return regs, dt_traverse_dev(regs, sid, dev, block_b=block_b)
 
     step.__name__ = step.__qualname__ = f"cuda_step_bb{block_b}"
     return step
@@ -122,6 +123,40 @@ def feature_window_rows(pkts, slot_op, slot_field, slot_pred, slot_init
                                      slot_init)
     return _ref.feature_window_ref(pkts, slot_op, slot_field, slot_pred,
                                    slot_init)
+
+
+def _table_rows(sid: torch.Tensor, S: int) -> torch.Tensor:
+    """Table rows of the SIDs, int64: ``-1`` (a hop that matched no
+    leaf) is row ``S - 1``, as a negative index reads it in the JAX
+    package and in the hop kernel."""
+    s = sid.to(torch.int64)
+    return torch.where(s < 0, s + S, s)
+
+
+def feature_window_dev(pkts: torch.Tensor, sid: torch.Tensor,
+                       dev: DeviceTables) -> torch.Tensor:
+    """Registers (B, k) of each flow's active subtree, from the engine's
+    device tables: the slot rows gathered by SID, then kernel A for a
+    CUDA tensor, ``feature_window_ref`` for a CPU tensor."""
+    s = _table_rows(sid, dev.slot_op.shape[0])
+    return feature_window_rows(pkts, dev.slot_op[s], dev.slot_field[s],
+                               dev.slot_pred[s], dev.slot_init[s])
+
+
+def dt_traverse_dev(regs: torch.Tensor, sid: torch.Tensor,
+                    dev: DeviceTables, *, block_b: int = BLOCK_B
+                    ) -> torch.Tensor:
+    """Range-mark match against the engine's device tables -> action
+    (B,) int32: kernel B behind the SID dispatch for a CUDA tensor, the
+    dense plain version for a CPU tensor."""
+    s = _table_rows(sid, dev.thresholds.shape[0])
+    if regs.device.type == "cuda":
+        return dispatch_dt_traverse(
+            regs, s.to(torch.int32), dev.thresholds, dev.leaf_lo,
+            dev.leaf_hi, dev.leaf_action, dev.leaf_valid, block_b=block_b)
+    return _ref.dt_traverse_ref(regs, dev.thresholds[s], dev.leaf_lo[s],
+                                dev.leaf_hi[s], dev.leaf_action[s],
+                                dev.leaf_valid[s] > 0)
 
 
 def feature_update(pkt, slot_op, slot_field, slot_pred, acc, seen

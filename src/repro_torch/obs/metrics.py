@@ -6,9 +6,11 @@ stack: ``ServerStats`` is a thin view over it.  Every cell is a Python
 int or a numpy buffer; ``Histogram.record_many`` is one
 ``np.searchsorted`` plus one ``np.add.at`` whatever the sample count.
 A snapshot is plain ``dict``/``list``/``float`` data, so two runs over
-the same ``PacketStream`` compare key by key.  The Prometheus/JSON
-exposition, snapshot deltas and the process-global registry are not
-ported (each server owns its registry).
+the same ``PacketStream`` compare key by key.  Each server owns its
+registry; :func:`get_registry` / :func:`set_registry` hold the process
+default that the design-space search (``core.dse``) records into.
+Labels, the Prometheus/JSON exposition and snapshot deltas are not
+ported (ROADMAP A.10).
 
 >>> reg = MetricRegistry()
 >>> reg.counter("serve_packets_total", "packets ingested").inc(128)
@@ -31,6 +33,8 @@ __all__ = [
     "Histogram",
     "MetricRegistry",
     "exp_edges",
+    "get_registry",
+    "set_registry",
 ]
 
 
@@ -97,6 +101,12 @@ class Histogram:
         self.total = 0
         self.sum = 0.0
 
+    def record(self, value: float) -> None:
+        i = int(np.searchsorted(self.edges, value, side="right"))
+        self.counts[i] += 1
+        self.total += 1
+        self.sum += float(value)
+
     def record_many(self, values) -> None:
         v = np.asarray(values, dtype=np.float64).ravel()
         if v.size == 0:
@@ -161,3 +171,19 @@ class MetricRegistry:
             }
         return {"counters": counters, "gauges": gauges,
                 "histograms": histograms}
+
+
+_DEFAULT = MetricRegistry()
+
+
+def get_registry() -> MetricRegistry:
+    """The process default registry."""
+    return _DEFAULT
+
+
+def set_registry(reg: MetricRegistry) -> MetricRegistry:
+    """Install ``reg`` as the process default; returns the previous one."""
+    global _DEFAULT
+    prev = _DEFAULT
+    _DEFAULT = reg
+    return prev

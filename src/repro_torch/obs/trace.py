@@ -9,8 +9,9 @@ Spans nest: a span entered inside another is recorded under it, and
 :func:`span_totals` reads the accumulated calls and seconds per path.
 
 The switch is the ``SPLIDT_OBS`` environment variable, read once at
-import: ``0`` makes :func:`span` return one shared no-op context
-manager.  The host clock says when work was enqueued, not when the card
+import and flipped at run time with :func:`set_enabled`: off, :func:`span`
+returns one shared no-op context manager and :func:`enabled` tells
+callers to skip their own wall-clock timing.  The host clock says when work was enqueued, not when the card
 ran it: a span that must cover device time has to end in a host fetch,
 as ``tick/fetch`` does.
 """
@@ -23,9 +24,22 @@ from typing import Dict, List, Optional
 
 import torch
 
-__all__ = ["reset_spans", "span", "span_totals"]
+__all__ = ["enabled", "reset_spans", "set_enabled", "span", "span_totals"]
 
 _ENABLED = os.environ.get("SPLIDT_OBS", "1") not in ("0", "false", "off")
+
+
+def enabled() -> bool:
+    """Is observability timing currently on?"""
+    return _ENABLED
+
+
+def set_enabled(on: bool) -> bool:
+    """Flip the global switch; returns the previous value."""
+    global _ENABLED
+    prev = _ENABLED
+    _ENABLED = bool(on)
+    return prev
 
 
 class SpanNode:
