@@ -23,7 +23,8 @@ exits nonzero; nothing is caught and passed over):
    every hop of a walk from random SIDs, -1 among them, with done flows,
    and in survivor mode on the survivors of that carry against the plain
    compacted hop and ``engine_hop_ref``, done flows' register rows kept,
-   and with rows and a count out of range; kernel A at both of its shapes;
+   and with rows and a count out of range; kernel A at the hop's shape
+   and at each launch of ``window_features`` on the training split;
    kernel A over every registry feature and the hop kernel on a tile of
    subnormal packet fields, so no flush-to-zero can slip in), and the
    engine's ``cuda`` walk against its ``fused`` walk, all with
@@ -48,8 +49,28 @@ exits nonzero; nothing is caught and passed over):
    dense and compacted walks with and without the trace, of ``Engine.run``
    from the device tensor, of each hop's kernel and of ``run_looped``,
    beside their bounds;
-5. serve   -- live serving, the second path: ``make_dataset("d2", 2^17,
-   seed=1)`` streamed by ``make_packet_stream(profile="steady",
+4c. fit    -- the trainer and the DSE's batched evaluator, the third
+   path, on ``make_dataset("d2", 2^17, seed=1)`` split 70/30 (91,750 /
+   39,322 flows): ``window_features(train, 3)`` on kernel A (launches
+   counted; each launch against its plain version on the same views, all
+   of them timed as the path makes them); for (3, 3, 3) at k = 4 and
+   (10, 10, 10) at k = 6, ``train_partitioned_dt(trainer="torch")`` on
+   the card equals the numpy trainer subtree for subtree, node for node,
+   with each trainer's wall time, host syncs and seconds per partition,
+   a traced run's device busy time and peak memory.  Then 4
+   configurations drawn from ``SearchSpace()`` (seed 0) on 6 windows:
+   ``evaluate_batch`` trains them on the card and equals the serial
+   evaluator; on its models ``fleet_predict`` of the test windows equals
+   each ``pdt.predict``, ``Engine.run`` and the CPU plain hop, with one
+   hop-kernel launch a model's partition and none of kernels A and B;
+   times of ``fleet_predict``, its hop launches (events, graph replay)
+   and the plain hops beside their bound (from the flows still live at
+   each hop), M x ``Engine.run`` and M x ``pdt.predict``, at the test
+   split and tiled to 2^20 flows.  Last, on ``make_dataset("d2",
+   1200)``, a seeded ``bayes_search`` with the torch trainer and
+   ``evaluate_batch`` gives the serial numpy history;
+5. serve   -- live serving, the second path: the dataset of phase
+   ``fit`` streamed by ``make_packet_stream(profile="steady",
    concurrency=65536)`` in ticks of 32,768 packets through
    ``FlowTableServer(eng, n_buckets=32768, bucket_size=8)`` (fused tick
    engine, ``impl=None``: one launch of the tick kernel per tick), then
@@ -147,6 +168,12 @@ WIDE_CONCURRENCY = 512.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (data sheet)
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 TF32_OPS_PER_S = 494.7e12  # H100 SXM TF32 tensor cores, dense
+FIT_CONFIGS = (((3, 3, 3), 4),     # the engine's model
+               ((10, 10, 10), 6))  # SearchSpace's deepest, k_max, 41 features
+FLEET_BATCH = 4           # bayes_search's default proposal batch
+FLEET_SEED = 0
+FLEET_FLOWS = 100_000     # the evaluator's flow target (tests/test_fit.py)
+DSE_SMALL = 1200          # make_dataset("d2", 1200): tests/test_fit.py's data
 LM_ARCH = "rwkv6-1.6b"
 LM_SLOTS, LM_MAX_LEN = 8, 2048
 LM_REQUESTS, LM_MAX_NEW = 16, 16
@@ -268,42 +295,57 @@ def host_s(fn, reps: int) -> float:
 
 
 def profile_run(fn, top: int = 12, warmup: bool = True,
-                ranges: str | None = None) -> dict:
+                ranges: str | None = None, card_only: bool = False) -> dict:
     """One traced call of ``fn`` (after an untraced one if ``warmup``):
     wall time, device busy time (the sum of kernel and copy time on the
     card) and the top device consumers; with ``ranges``, also the host
     and device time the trace attributes to each ``record_function``
-    range whose name starts with it (the ``obs.span`` markers)."""
+    range whose name starts with it (the ``obs.span`` markers).
+    ``card_only`` traces the card's activity alone and reads the raw
+    device events: for a call of ~10^5 launches, building the profiler's
+    event tree takes most of a minute."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     if warmup:
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if not card_only:
+        acts.insert(0, ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side events only (kernels, copies, memsets): the host ops
-    # that launched them carry the same time again, and so do the
-    # device-side spans of the ``ranges`` markers
-    events = [e for e in prof.key_averages()
-              if str(e.device_type).endswith("CUDA")
-              and e.self_device_time_total > 0
-              and not (ranges and e.key.startswith(ranges))]
-    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    # device-side events only (kernels, copies, memsets), as (name, calls,
+    # ms): the host ops that launched them carry the same time again, and
+    # so do the device-side spans of the ``ranges`` markers
+    if card_only:
+        agg = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA \
+                    and not e.is_user_annotation():
+                n, ns = agg.get(e.name(), (0, 0))
+                agg[e.name()] = (n + 1, ns + e.duration_ns())
+        events = [(k, n, ns / 1e6) for k, (n, ns) in agg.items() if ns > 0]
+    else:
+        events = [(e.key, e.count, e.self_device_time_total / 1e3)
+                  for e in prof.key_averages()
+                  if str(e.device_type).endswith("CUDA")
+                  and e.self_device_time_total > 0
+                  and not (ranges and e.key.startswith(ranges))]
+    busy_ms = sum(ms for _, _, ms in events)
+    events.sort(key=lambda e: e[2], reverse=True)
     copies = ("Memcpy", "Memset")
     out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "device_event_kinds": len(events),
            # device kernels launched, copies and fills left out
-           "device_kernels": sum(e.count for e in events
-                                 if not e.key.startswith(copies)),
+           "device_kernels": sum(n for k, n, _ in events
+                                 if not k.startswith(copies)),
            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
-           "top": [{"name": e.key[:80], "calls": e.count,
-                    "device_ms": e.self_device_time_total / 1e3}
-                   for e in events[:top]]}
+           "top": [{"name": k[:80], "calls": n, "device_ms": ms}
+                   for k, n, ms in events[:top]]}
     if ranges is not None:
         # each marker shows up twice: on the host (its wall time and the
         # device time of the kernels it launched) and on the device (the
@@ -381,6 +423,28 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def feature_window_bound(n: int, w: int, kk: int) -> tuple[float, str]:
+    """Kernel A's least time: the (n, w, 6) window and four (n, kk) slot
+    rows read once, the (n, kk) registers written once; 3 f32 multiplies
+    and 3 adds a packet and slot."""
+    n_bytes = n * w * 6 * 4 + n * kk * 4 * 4 + n * kk * 4
+    return bound_ms(n_bytes, n * kk * w * 6)
+
+
+def same_models(a, b) -> bool:
+    """Two ``PartitionedDT``s equal subtree for subtree: SIDs in the same
+    order, the same partitions and routing, node for node the same trees
+    (feature, threshold, left, right, value)."""
+    if len(a.subtrees) != len(b.subtrees):
+        return False
+    return all(
+        (x.sid, x.partition, x.leaf_next_sid, x.leaf_label)
+        == (y.sid, y.partition, y.leaf_next_sid, y.leaf_label)
+        and all(np.array_equal(getattr(x.tree, f), getattr(y.tree, f))
+                for f in ("feature", "threshold", "left", "right", "value"))
+        for x, y in zip(a.subtrees, b.subtrees))
 
 
 def chunk_scan_bound(bh: int, t: int, dk: int, dv: int, c: int,
@@ -1057,6 +1121,400 @@ def compact_phase(card) -> dict:
     return out
 
 
+def window_feature_calls(wp, rows, batch: int) -> list[tuple]:
+    """The kernel-A calls ``window_features`` makes for the packets ``wp``
+    (n, p, W, 6) on the card: one a flow batch of ``batch`` and window, on
+    the same strided views and slot rows (``rows(n, device)``).  Returns
+    their argument tuples."""
+    n, p = wp.shape[:2]
+    calls = []
+    for lo in range(0, n, batch):
+        hi = min(lo + batch, n)
+        r = rows(hi - lo, wp.device)
+        calls += [(wp[lo:hi, w], *r) for w in range(p)]
+    return calls
+
+
+def fleet_bound(exit_p: np.ndarray, W: int, engs) -> dict:
+    """The least time of one ``fleet_predict`` walk, from this run's
+    verdicts: each model's hop ``p`` must read the (W, 6) window and the
+    carry (17 bytes a flow, read and written) of the flows still live
+    entering it (``exit_partition >= p``, or none taken), and the model's
+    own tables once; 3 f32 multiplies and 3 adds a packet and slot of a
+    live flow.  The match's compares are left out (they depend on each
+    flow's subtree), so the operations are a floor too.  Also the bound
+    with each window read once for the whole fleet (a flow live in any
+    model at that hop): what a walk with a model axis could reach."""
+    M, n = exit_p.shape
+    n_bytes = n_ops = carry_tables = 0
+    live_any = np.zeros((n,), bool)
+    windows_once = 0
+    P = max(e.tables.n_partitions for e in engs)
+    for p in range(P):
+        live_any[:] = False
+        for m, e in enumerate(engs):
+            if p >= e.tables.n_partitions:
+                continue
+            live = (exit_p[m] < 0) | (exit_p[m] >= p)
+            nl = int(live.sum())
+            k = e.tables.dev.slot_op.shape[1]
+            n_bytes += nl * W * 6 * 4
+            carry_tables += nl * 17 * 2
+            n_ops += nl * k * W * 6
+            live_any |= live
+        windows_once += int(live_any.sum()) * W * 6 * 4
+    carry_tables += sum(t.numel() * t.element_size()
+                        for e in engs for t in e.tables.dev)
+    bound, by = bound_ms(n_bytes + carry_tables, n_ops)
+    return {"bound_ms": bound, "bound_by": by,
+            "bound_bytes": n_bytes + carry_tables, "bound_ops": n_ops,
+            "bound_windows_read_once_ms":
+                bound_ms(windows_once + carry_tables, n_ops)[0]}
+
+
+def fit_phase(card, ds) -> dict:
+    """Phase ``fit``: the trainer and the DSE's batched evaluator on the
+    card, on ``ds`` (``make_dataset("d2", SERVE_FLOWS, seed=1)``, which
+    ``serve`` streams next) split 70/30.  The counts are zeroed before
+    each step and read after it; ``steps_s`` gives each step's seconds.
+
+    Training features: ``window_features(train, 3)`` (kernel A, one
+    launch a window and flow batch; no hop or kernel B launch); each of
+    those launches against its plain version on the same views, and all
+    of them timed as the path makes them.  For each of ``FIT_CONFIGS``:
+    ``train_partitioned_dt(trainer="torch")`` equals ``trainer="numpy"``
+    subtree for subtree (gate); the wall time of each trainer (the torch
+    one after a traced run of the card's activity alone, which gives its
+    device busy time), its host syncs and host seconds per partition, and
+    its peak device memory above what was held.
+
+    The DSE fleet: ``FLEET_BATCH`` configurations drawn from
+    ``SearchSpace()`` with ``FLEET_SEED``, on windows of
+    ``SearchSpace().max_partitions``.  ``evaluate_batch`` trains them with
+    ``trainer="torch"`` and equals the serial evaluator on every config
+    (gate); the models it scored are the fleet.  Gates: ``fleet_predict``
+    on the test windows equals each model's ``pdt.predict`` and
+    ``Engine.run``, and the same call on CPU tensors (the plain hop); one
+    hop-kernel launch a model's partition and none of kernels A and B.
+    Times: ``fleet_predict`` (host clock, from numpy and from a device
+    tensor), its hop launches (CUDA events; device time by graph replay)
+    and the same walks on the plain hop, beside their bound, M x
+    ``Engine.run`` and M x ``pdt.predict``, at the test split and tiled
+    to B_MAIN flows.
+
+    Last, on ``make_dataset("d2", DSE_SMALL)`` (``tests/test_fit.py``'s
+    fixture): a seeded ``bayes_search`` with ``trainer="torch"`` and the
+    batched evaluator gives the serial numpy history (configs, F1,
+    feasibility, best, iterations to best)."""
+    import torch
+
+    from repro_torch import fit
+    from repro_torch.core import dse
+    from repro_torch.core.inference import Engine, partition_walk
+    from repro_torch.core.partition import train_partitioned_dt
+    from repro_torch.flows.synthetic import make_dataset
+    from repro_torch.flows.windows import _FLOW_BATCH as fw_batch
+    from repro_torch.flows.windows import (
+        _all_feature_rows, window_features, window_packets,
+    )
+    from repro_torch.kernels import dt_traverse, ref
+    from repro_torch.kernels import engine_hop as eh
+    from repro_torch.kernels import feature_window as fw
+
+    def zero_counts():
+        fw.launches = dt_traverse.launches = eh.launches = 0
+
+    def counts():
+        return {"feature_window": fw.launches,
+                "dt_traverse": dt_traverse.launches,
+                "engine_hop": eh.launches}
+
+    t_phase = time.perf_counter()
+    steps = {}
+
+    def step(name, t0):
+        steps[name] = time.perf_counter() - t0
+
+    tr, te = ds.split()
+    C = ds.n_classes
+    out = {"n_train": tr.n_flows, "n_test": te.n_flows, "steps_s": steps}
+
+    # -- training features on kernel A, checked and timed as launched ----
+    t_step = time.perf_counter()
+    zero_counts()
+    t0 = time.perf_counter()
+    Xw_tr = window_features(tr, 3)
+    features_s = time.perf_counter() - t0
+    feat_launches = counts()
+    xtr = torch.from_numpy(window_packets(tr, 3)).to(card)
+    a_calls = window_feature_calls(xtr, _all_feature_rows, fw_batch)
+    check(feat_launches == {"feature_window": len(a_calls),
+                            "dt_traverse": 0, "engine_hop": 0},
+          f"window_features: one kernel A launch a window and flow batch, "
+          f"got {feat_launches}")
+    for args in a_calls:
+        check(torch.equal(fw.feature_window_kernel(*args),
+                          ref.feature_window_ref(*args)),
+              f"kernel A == plain at B={args[0].shape[0]}, k=41")
+    a_ms = cuda_ms(lambda: [fw.feature_window_kernel(*a) for a in a_calls],
+                   reps=5)
+    a_graph_ms = graph_ms(lambda: [fw.feature_window_kernel(*a)
+                                   for a in a_calls], 1, reps=3)
+    a_plain_ms = cuda_ms(lambda: [ref.feature_window_ref(*a)
+                                  for a in a_calls], reps=2, warmup=1)
+    a_bound, a_by = feature_window_bound(3 * tr.n_flows, xtr.shape[2], 41)
+    batch_sizes = sorted({a[0].shape[0] for a in a_calls}, reverse=True)
+    out["kernel_a"] = {
+        "shape": f"{len(a_calls)} launches of B in {batch_sizes}, "
+                 f"W={xtr.shape[2]}, k=41 ({tr.n_flows} flows x 3 windows)",
+        "window_features_launches": feat_launches["feature_window"],
+        "window_features_s": features_s, "ms": a_ms, "graph_ms": a_graph_ms,
+        "ms_per_launch": a_ms / len(a_calls), "plain_ms": a_plain_ms,
+        "bound_ms": a_bound, "bound_by": a_by, "equal": True}
+    del xtr, a_calls
+    step("features", t_step)
+
+    # -- the trainers ----------------------------------------------------
+    real_forest, real_binning = fit.train_forest, fit.hist.bin_for_growth
+    trainers = out["trainers"] = {}
+    for sizes, k in FIT_CONFIGS:
+        t_step = time.perf_counter()
+        kw = dict(partition_sizes=list(sizes), k=k, n_classes=C)
+        t0 = time.perf_counter()
+        p_np = train_partitioned_dt(Xw_tr, tr.labels, **kw)
+        numpy_s = time.perf_counter() - t0
+        # the traced run is the torch trainer's warm-up
+        prof = profile_run(lambda: train_partitioned_dt(
+            Xw_tr, tr.labels, trainer="torch", **kw), warmup=False,
+            top=6, card_only=True)
+        check(prof["device_busy_ms"] > 0, "the traced trainer ran on the card")
+        parts, binning_s = [], [0.0]
+
+        def binning(*args, **kwargs):
+            t0 = time.perf_counter()
+            edges_binned = real_binning(*args, **kwargs)
+            binning_s[0] += time.perf_counter() - t0
+            return edges_binned
+
+        def forest(*args, **kwargs):
+            syncs, t0 = fit.hist.host_syncs, time.perf_counter()
+            trees = real_forest(*args, **kwargs)
+            parts.append({"subtrees": len(trees),
+                          "host_syncs": fit.hist.host_syncs - syncs,
+                          "host_s": time.perf_counter() - t0})
+            return trees
+
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        fit.train_forest, fit.hist.bin_for_growth = forest, binning
+        try:
+            t0 = time.perf_counter()
+            p_t = train_partitioned_dt(Xw_tr, tr.labels, trainer="torch",
+                                       **kw)
+            torch_s = time.perf_counter() - t0
+        finally:
+            fit.train_forest = real_forest
+            fit.hist.bin_for_growth = real_binning
+        peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        check(not any(counts().values()), "the grower launches no kernel "
+              "of the port's own")
+        check(same_models(p_np, p_t), f"{sizes}, k = {k}: torch trainer == "
+              f"numpy trainer, subtree for subtree")
+        trainers[f"{sizes}/k={k}"] = {
+            "subtrees": len(p_t.subtrees),
+            "subtrees_per_partition": [len(p_t.sids_in_partition(p))
+                                       for p in range(len(sizes))],
+            "numpy_s": numpy_s, "torch_s": torch_s,
+            "torch_host_binning_s": binning_s[0], "partitions": parts,
+            "peak_above_held_gb": peak_gb,
+            "profile": prof, "equal_numpy": True}
+        step(f"trainers {sizes}/k={k}", t_step)
+
+    # -- the DSE fleet: evaluate_batch == serial, its models scored ------
+    t_step = time.perf_counter()
+    space = dse.SearchSpace()
+    P = space.max_partitions
+    rng = np.random.default_rng(FLEET_SEED)
+    cfgs = []
+    while len(cfgs) < FLEET_BATCH:
+        c = space.sample(rng)
+        if c not in cfgs:
+            cfgs.append(c)
+    zero_counts()
+    Xd_tr = window_features(tr, P)
+    Xd_te = window_features(te, P)
+    check(counts()["feature_window"] == P * (-(-tr.n_flows // fw_batch)
+                                             + -(-te.n_flows // fw_batch)),
+          "kernel A computes the DSE windows")
+    wp = window_packets(te, P)
+    step("fleet windows", t_step)
+
+    t_step = time.perf_counter()
+    ev = dse.make_splidt_evaluator(Xd_tr, tr.labels, Xd_te, te.labels,
+                                   n_classes=C, flows=FLEET_FLOWS,
+                                   trainer="torch", win_pkts_te=wp)
+    scored, real_fleet = [], fit.batched.fleet_predict
+
+    def fleet_seen(pdts_, *args, **kwargs):
+        scored.append(list(pdts_))
+        return real_fleet(pdts_, *args, **kwargs)
+
+    zero_counts()
+    fit.batched.fleet_predict = fleet_seen
+    try:
+        t0 = time.perf_counter()
+        batch = ev.evaluate_batch(cfgs)
+        batch_s = time.perf_counter() - t0
+    finally:
+        fit.batched.fleet_predict = real_fleet
+    batch_launches = counts()
+    step("evaluate_batch", t_step)
+    t_step = time.perf_counter()
+    serial = [ev(c) for c in cfgs]
+    serial_s = time.perf_counter() - t_step
+    check(batch == serial, "evaluate_batch == the serial evaluator")
+    step("serial evaluator", t_step)
+    pdts = scored[0]                     # the batch as first trained
+    M, B, W = len(pdts), wp.shape[0], wp.shape[2]
+    hops = sum(p.n_partitions for p in pdts)
+    check(batch_launches["engine_hop"] >= hops
+          and batch_launches["feature_window"] == 0,
+          f"evaluate_batch walks on the hop kernel, got {batch_launches}")
+
+    t_step = time.perf_counter()
+    zero_counts()
+    got = fit.fleet_predict(pdts, wp)
+    fleet_launches = counts()
+    check(fleet_launches == {"engine_hop": hops, "feature_window": 0,
+                             "dt_traverse": 0},
+          f"fleet_predict: one hop-kernel launch a model's partition "
+          f"({hops}) and no kernel A or B, got {fleet_launches}")
+    names = ("labels", "recircs", "exit_partition")
+    engs = [Engine.from_model(p) for p in pdts]
+    for i, (p, eng) in enumerate(zip(pdts, engs)):
+        want = p.predict(Xd_te[:, :p.n_partitions], return_trace=True)
+        run = eng.run(wp, with_trace=False)
+        for name, g, w in zip(names, got, want):
+            check(g.dtype == np.int32 and np.array_equal(g[i], w),
+                  f"fleet model {i}: {name} == pdt.predict")
+            check(np.array_equal(g[i], getattr(run, name)),
+                  f"fleet model {i}: {name} == Engine.run")
+    t0 = time.perf_counter()
+    cpu = fit.fleet_predict(pdts, wp, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    for name, g, c in zip(names, got, cpu):
+        check(np.array_equal(g, c), f"fleet {name}: card == CPU plain hop")
+    x = torch.from_numpy(wp).to(card)
+    reps = -(-B_MAIN // B)
+    x_big = x.repeat(reps, 1, 1, 1)[:B_MAIN]
+    Xd_big = np.tile(Xd_te, (reps, 1, 1))[:B_MAIN]
+    got_big = fit.fleet_predict(pdts, x_big)
+    for name, g, g_big in zip(names, got, got_big):
+        check(np.array_equal(g_big, np.tile(g, (1, reps))[:, :B_MAIN]),
+              f"fleet {name} at B_MAIN == the tiled test split")
+    step("fleet gates", t_step)
+
+    def walks(xx, hop):
+        """fleet_predict's hop launches alone: no pack, no fetch."""
+        return [partition_walk(xx, e.tables.dev,
+                               n_subtrees=e.tables.n_subtrees,
+                               n_partitions=e.tables.n_partitions,
+                               with_trace=False, hop=hop) for e in engs]
+
+    def times(xx, Xd, exit_p, reps_, plain_reps):
+        return {
+            "B": xx.shape[0], "M": M, "hops": hops, "W": W,
+            "P": [p.n_partitions for p in pdts],
+            "S": [e.tables.n_subtrees for e in engs],
+            "k": [e.tables.dev.slot_op.shape[1] for e in engs],
+            "T": [e.tables.dev.thresholds.shape[2] for e in engs],
+            "L": [e.tables.dev.leaf_lo.shape[1] for e in engs],
+            "fleet_predict_from_device_s": host_s(
+                lambda: fit.fleet_predict(pdts, xx), reps=reps_),
+            "hop_launches_ms": cuda_ms(
+                lambda: walks(xx, eh.engine_hop_kernel), reps=reps_),
+            "hop_launches_graph_ms": graph_ms(
+                lambda: walks(xx, eh.engine_hop_kernel), 2, reps=reps_),
+            "plain_hops_ms": cuda_ms(
+                lambda: walks(xx, eh.engine_hop_plain), reps=plain_reps,
+                warmup=plain_reps - 1),
+            **fleet_bound(exit_p, W, engs),
+            "engine_run_x_M_from_device_s": host_s(
+                lambda: [e.run(xx, with_trace=False) for e in engs],
+                reps=reps_),
+            "predict_x_M_s": host_s(
+                lambda: [p.predict(Xd[:, :p.n_partitions],
+                                   return_trace=True) for p in pdts],
+                reps=1)}
+
+    t_step = time.perf_counter()
+    scales = {"test_split": times(x, Xd_te, got[2], 3, 2)}
+    ts = scales["test_split"]
+    ts["fleet_predict_from_numpy_s"] = host_s(
+        lambda: fit.fleet_predict(pdts, wp), reps=3)
+    ts["engine_run_x_M_from_numpy_s"] = host_s(
+        lambda: [e.run(wp, with_trace=False) for e in engs], reps=3)
+    ts["engine_from_model_and_run_x_M_from_device_s"] = host_s(
+        lambda: [Engine.from_model(p).run(x, with_trace=False)
+                 for p in pdts], reps=3)
+    ts["pack_model_fleet_s"] = host_s(lambda: fit.pack_model_fleet(pdts),
+                                      reps=1)
+    step("fleet times, test split", t_step)
+    t_step = time.perf_counter()
+    scales["tiled_2^20"] = times(x_big, Xd_big, got_big[2], 2, 1)
+    del x_big, Xd_big
+    step("fleet times, 2^20", t_step)
+    out["fleet"] = {
+        "configs": [[c.k, list(c.partition_sizes)] for c in cfgs],
+        "subtrees": [len(p.subtrees) for p in pdts],
+        "launches": fleet_launches, "cpu_plain_s": cpu_s, "times": scales,
+        "equal_predict": True, "equal_engine_run": True, "equal_cpu": True,
+        "evaluate_batch": {
+            "s": batch_s, "serial_s": serial_s, "launches": batch_launches,
+            "feasible": [e.feasible for e in batch],
+            "f1": [e.f1 for e in batch], "equal_serial": True}}
+
+    # -- a seeded search: torch and the batched evaluator == numpy ------
+    t_step = time.perf_counter()
+    small = make_dataset("d2", DSE_SMALL)
+    s_tr, s_te = small.split()
+    common = (window_features(s_tr, 3), s_tr.labels,
+              window_features(s_te, 3), s_te.labels)
+    space_s = dse.SearchSpace(max_partitions=3, k_max=4, depth_max=4)
+    search = dict(n_iterations=2, batch=3, n_init=4, seed=0)
+    kw = dict(n_classes=small.n_classes, flows=FLEET_FLOWS)
+    zero_counts()
+    t0 = time.perf_counter()
+    r_t = dse.bayes_search(dse.make_splidt_evaluator(
+        *common, trainer="torch", win_pkts_te=window_packets(s_te, 3),
+        **kw), space_s, **search)
+    bo_torch_s = time.perf_counter() - t0
+    bo_launches = counts()
+    t0 = time.perf_counter()
+    r_np = dse.bayes_search(dse.make_splidt_evaluator(*common, **kw),
+                            space_s, **search)
+    bo_numpy_s = time.perf_counter() - t0
+    for field in ("config", "f1", "feasible"):
+        check([getattr(e, field) for e in r_t.history]
+              == [getattr(e, field) for e in r_np.history],
+              f"bayes_search torch history == numpy: {field}")
+    check(r_t.best.config == r_np.best.config
+          and r_t.iterations_to_best == r_np.iterations_to_best,
+          "bayes_search torch best == numpy")
+    check(bo_launches["engine_hop"] > 0, "the search walks on the hop kernel")
+    out["bayes_search"] = {
+        "evaluations": len(r_t.history), "torch_batched_s": bo_torch_s,
+        "numpy_serial_s": bo_numpy_s, "launches": bo_launches,
+        "best": [r_t.best.config.k, list(r_t.best.config.partition_sizes)],
+        "best_f1": r_t.best.f1, "iterations_to_best": r_t.iterations_to_best,
+        "equal_numpy": True}
+    step("bayes_search", t_step)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1189,11 +1647,13 @@ def main() -> int:
                     fw.feature_window_kernel(*a_args),
                     ref.feature_window_ref(*a_args))
     xtr = torch.from_numpy(window_packets(tr, 3)).to(card)
-    a41_args = (xtr[:, 2], *_all_feature_rows(tr.n_flows, card))
-    err_a = max(err_a, compare(
-        f"feature_window[B={tr.n_flows},W={xtr.shape[2]},k=41]",
-        fw.feature_window_kernel(*a41_args),
-        ref.feature_window_ref(*a41_args)))
+    # kernel A's calls in window_features of the training split
+    a41_calls = window_feature_calls(xtr, _all_feature_rows, fw_batch)
+    for i, a41_args in enumerate(a41_calls):
+        err_a = max(err_a, compare(
+            f"feature_window[B={a41_args[0].shape[0]},W={xtr.shape[2]},"
+            f"k=41]#{i}", fw.feature_window_kernel(*a41_args),
+            ref.feature_window_ref(*a41_args)))
 
     regs = fw.feature_window_kernel(*a_args)
     bb = 128
@@ -1343,8 +1803,10 @@ def main() -> int:
     # -- 4. times -------------------------------------------------------------
     ms_a = cuda_ms(lambda: fw.feature_window_kernel(*a_args))
     plain_a = cuda_ms(lambda: ref.feature_window_ref(*a_args))
-    ms_a41 = cuda_ms(lambda: fw.feature_window_kernel(*a41_args))
-    plain_a41 = cuda_ms(lambda: ref.feature_window_ref(*a41_args))
+    ms_a41 = cuda_ms(lambda: [fw.feature_window_kernel(*a)
+                              for a in a41_calls])
+    plain_a41 = cuda_ms(lambda: [ref.feature_window_ref(*a)
+                                 for a in a41_calls])
     ms_b = cuda_ms(lambda: dt_traverse.dt_traverse_kernel(*b_args,
                                                           block_b=bb))
     plain_b = cuda_ms(lambda: dt_traverse.dt_traverse_blocks_ref(
@@ -1352,14 +1814,9 @@ def main() -> int:
     ms_dispatch = cuda_ms(lambda: dispatch.dispatch_dt_traverse(
         regs, sid, *dev[4:], block_b=bb))
 
-    # least traffic: every input read once, every output written once
-    def fw_bound(n, w, kk):
-        n_bytes = n * w * 6 * 4 + n * kk * 4 * 4 + n * kk * 4
-        n_ops = n * kk * w * 6            # 3 f32 mul + 3 f32 add per packet
-        return bound_ms(n_bytes, n_ops)
-
-    bound_a, by_a = fw_bound(B_MAIN, W, k)
-    bound_a41, by_a41 = fw_bound(tr.n_flows, xtr.shape[2], 41)
+    bound_a, by_a = feature_window_bound(B_MAIN, W, k)
+    bound_a41, by_a41 = feature_window_bound(3 * tr.n_flows, xtr.shape[2],
+                                             41)
 
     # the hop kernel at hop 1 of the main path, writing its trace row; the
     # carry is restored from carry0 before each call, outside the events
@@ -1465,9 +1922,13 @@ def main() -> int:
     compact_out = compact_phase(card)
     emit("compact", card=smi, **compact_out)
 
+    # -- 4c. the trainer and the DSE's batched evaluator ---------------------
+    ds_s = make_dataset("d2", SERVE_FLOWS, seed=1)      # serve streams it
+    fit_out = fit_phase(card, ds_s)
+    emit("fit", card=smi, **fit_out)
+
     # -- 5. live serving through the flow table ------------------------------
     t0 = time.perf_counter()
-    ds_s = make_dataset("d2", SERVE_FLOWS, seed=1)
     stream = make_packet_stream(ds_s, seed=7, profile="steady",
                                 concurrency=SERVE_CONCURRENCY)
     serve_setup_s = time.perf_counter() - t0
@@ -1901,7 +2362,28 @@ def main() -> int:
                     "launches_per_compacted_run":
                         c["survivor_launches_compact"],
                     "hops": [h for h in c["hops"] if h["hop"]]}
-             for prof, c in compact_out.items() if prof != "phase_s"}},
+             for prof, c in compact_out.items() if prof != "phase_s"},
+         "fleet": {
+             "launches_path": "fit: fleet_predict, one per model and "
+                              "partition",
+             "launches": fit_out["fleet"]["launches"]["engine_hop"],
+             "evaluate_batch_launches":
+                 fit_out["fleet"]["evaluate_batch"]["launches"]["engine_hop"],
+             "bayes_search_launches":
+                 fit_out["bayes_search"]["launches"]["engine_hop"],
+             **{tag: {"shape": f"{t['hops']} hops of M={t['M']} models "
+                               f"(P={t['P']}), B={t['B']},W={t['W']},"
+                               f"S={t['S']},k={t['k']},T={t['T']},"
+                               f"L={t['L']}",
+                      "ms": t["hop_launches_ms"],
+                      "graph_ms": t["hop_launches_graph_ms"],
+                      "plain_ms": t["plain_hops_ms"],
+                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                      "bound_windows_read_once_ms":
+                          t["bound_windows_read_once_ms"],
+                      "graph_over_bound":
+                          t["hop_launches_graph_ms"] / t["bound_ms"]}
+                for tag, t in fit_out["fleet"]["times"].items()}}},
         {"name": "feature_window", "route": "cuda",
          "source": "src/repro_torch/csrc/feature_window.cu",
          "replaces": "src/repro/kernels/feature_window.py:115",
@@ -1916,9 +2398,15 @@ def main() -> int:
              prof: c["run_looped_launches"]
              for prof, c in compact_out.items() if prof != "phase_s"},
          "training_shape": {
-             "shape": f"B={tr.n_flows},W={xtr.shape[2]},k=41",
+             "shape": f"{len(a41_calls)} launches of window_features, "
+                      f"{tr.n_flows} flows x 3 windows in batches of "
+                      f"{fw_batch}, W={xtr.shape[2]}, k=41",
              "ms": ms_a41, "plain_ms": plain_a41, "bound_ms": bound_a41,
-             "bound_by": by_a41}},
+             "bound_by": by_a41},
+         "fit": dict(fit_out["kernel_a"],
+                     launches_path="fit: window_features of the 2^17 "
+                                   "training split, 3 windows, all its "
+                                   "launches timed together")},
         {"name": "dt_traverse", "route": "cuda",
          "source": "src/repro_torch/csrc/dt_traverse.cu",
          "replaces": "src/repro/kernels/dt_traverse.py:58",

@@ -1,6 +1,6 @@
 """Design-space exploration via Bayesian optimisation (paper §3.2.1; a
-copy of ``repro.core.dse`` with the numpy trainer and the serial
-evaluator only).
+copy of ``repro.core.dse`` whose fleet trainer and batched evaluator
+are the port's ``repro_torch.fit``).
 
 HyperMapper is not available offline, so we implement the BO loop it
 provides: a Gaussian-process surrogate (RBF kernel, pure numpy
@@ -149,24 +149,33 @@ def make_splidt_evaluator(
     feature_ranges: dict[int, tuple[float, float]] | None = None,
     trainer: str = "numpy",
     win_pkts_te: np.ndarray | None = None,
+    device=None,
 ) -> Callable[[Config], Evaluation]:
     """The paper's per-configuration pipeline: train (Algorithm 1) ->
     evaluate F1 -> generate rules -> resource/feasibility check.
 
-    ``trainer`` must be ``"numpy"`` (the host CART trainer).  The JAX
-    package's ``trainer="jax"`` fleet grower and its ``win_pkts_te=``
-    batched evaluator (``evaluate_batch``, through ``fleet_predict``)
-    need ``fit/``, which is not ported yet (ROADMAP A.8): both raise.
-    F1 is scored on ``PartitionedDT.predict``, the numpy oracle every
-    engine route equals bit for bit.
-    """
-    if trainer == "jax" or win_pkts_te is not None:
-        raise ValueError("trainer='jax' and win_pkts_te= need the fit/ "
-                         "grower and fleet_predict, which are not ported "
-                         "yet (ROADMAP A.8); use trainer='numpy'")
-    if trainer != "numpy":
-        raise ValueError(f"unknown trainer {trainer!r}; options: numpy")
+    ``trainer`` selects the subtree grower passed through to
+    :func:`train_partitioned_dt` (``"numpy"`` or the device fleet
+    ``"torch"`` -- structurally identical models either way).  The
+    serial evaluator scores F1 on ``PartitionedDT.predict``, the numpy
+    oracle every engine route equals bit for bit.
 
+    ``win_pkts_te``: optional window-*packet* tensor for the test split
+    (``flows.windows.window_packets`` over the same window count as
+    ``Xw_te``).  When given, the returned evaluator grows an
+    ``evaluate_batch`` attribute that scores a whole candidate batch
+    through the engine's walk in one call
+    (``repro_torch.fit.batched.fleet_predict``: the hop kernel on the
+    card); :func:`bayes_search` picks it up automatically.  Labels are
+    bit-identical to ``PartitionedDT.predict`` (docs/PARITY.md), so
+    serial and batched evaluation produce the same ``Evaluation``s.
+
+    ``device`` (``None`` = the card; raises without one) is read by the
+    ``"torch"`` trainer and the batched evaluator only.
+    """
+    if trainer not in ("numpy", "torch"):
+        raise ValueError(f"unknown trainer {trainer!r}; options: numpy, "
+                         "torch")
     env = ENVIRONMENTS[env_name]
 
     def _train(cfg: Config, max_dep):
@@ -175,7 +184,8 @@ def make_splidt_evaluator(
         return train_partitioned_dt(
             Xw_tr[:, :cfg.n_partitions], y_tr,
             partition_sizes=list(cfg.partition_sizes), k=cfg.k,
-            n_classes=n_classes, max_dep_depth=max_dep, trainer=trainer)
+            n_classes=n_classes, max_dep_depth=max_dep, trainer=trainer,
+            device=device)
 
     def _finish(pdt, pred, recircs):
         f1 = macro_f1(y_te, pred, n_classes)
@@ -209,6 +219,37 @@ def make_splidt_evaluator(
             if rep2.feasible:
                 pdt, f1, bw, rep = pdt2, f12, bw2, rep2
         return _evaluation(cfg, pdt, f1, bw, rep)
+
+    if win_pkts_te is not None:
+
+        def _attempt_batch(cfgs: list[Config], max_deps: list):
+            """Train each config, then score ALL of them in one fleet
+            walk."""
+            from repro_torch.fit.batched import fleet_predict
+            pdts = [_train(c, d) for c, d in zip(cfgs, max_deps)]
+            P = max(p.n_partitions for p in pdts)
+            labels, recircs, _ = fleet_predict(pdts, win_pkts_te[:, :P],
+                                               device=device)
+            return [_finish(p, labels[i], recircs[i])
+                    for i, p in enumerate(pdts)]
+
+        def evaluate_batch(cfgs: list[Config]) -> list[Evaluation]:
+            if not cfgs:
+                return []
+            results = _attempt_batch(cfgs, [None] * len(cfgs))
+            # feasibility fallback, batched the same way: retrain the
+            # dependency-bound failures on dependency-free features
+            redo = [i for i, (pdt, _, _, rep) in enumerate(results)
+                    if not rep.feasible and pdt.dep_depth() > 0]
+            if redo:
+                retried = _attempt_batch([cfgs[i] for i in redo],
+                                         [0] * len(redo))
+                for i, res2 in zip(redo, retried):
+                    if res2[3].feasible:
+                        results[i] = res2
+            return [_evaluation(c, *res) for c, res in zip(cfgs, results)]
+
+        evaluate.evaluate_batch = evaluate_batch
 
     return evaluate
 
@@ -252,8 +293,8 @@ def bayes_search(
     when sampling collided with ``seen``).
 
     ``evaluate_batch`` (or an ``evaluate_batch`` attribute on
-    ``evaluate``; the port's :func:`make_splidt_evaluator` gives none
-    until ROADMAP A.8) scores each proposal batch in one call -- the
+    ``evaluate``, as produced by :func:`make_splidt_evaluator` with
+    ``win_pkts_te=``) scores each proposal batch in one call -- the
     paper's 16 parallel evaluations -- instead of looping
     ``evaluate`` per candidate.  History order (and therefore the GP
     state, the RNG stream, and ``BOResult``) is identical either way.

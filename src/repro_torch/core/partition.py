@@ -1,5 +1,6 @@
 """Partitioned decision trees + SpliDT's custom training (Algorithm 1);
-a copy of ``repro.core.partition`` with the numpy trainer only.
+a copy of ``repro.core.partition`` whose fleet grower is the port's
+``repro_torch.fit`` (``trainer="torch"``, the JAX package's ``"jax"``).
 
 A :class:`PartitionedDT` is a collection of subtrees grouped into
 partitions.  Subtree 0 (SID 0) lives in partition 0 and sees window 0's
@@ -21,6 +22,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch import obs
 from repro_torch.core import tree as tree_lib
 from repro_torch.core.features import REGISTRY, max_dep_depth
 from repro_torch.core.tree import Tree, train_tree
@@ -126,6 +128,7 @@ def train_partitioned_dt(
     max_bins: int = tree_lib.MAX_BINS,
     max_dep_depth: int | None = None,
     trainer: str = "numpy",
+    device=None,
 ) -> PartitionedDT:
     """Paper Algorithm 1: per-leaf subtree training, one partition level
     at a time.
@@ -137,24 +140,33 @@ def train_partitioned_dt(
     this at high flow targets, where dependency registers are the
     binding constraint).
 
-    ``trainer`` must be ``"numpy"``, the host CART trainer
-    (:func:`repro_torch.core.tree.train_tree`), one subtree at a time.
-    The jitted fleet grower of the JAX package (``trainer="jax"``) has
-    no counterpart in the port yet (ROADMAP item A.8).
+    ``trainer`` selects the subtree grower:
 
-    SIDs are assigned in partition-major level order (partition 0's
-    subtree, then partition 1's subtrees in the order their parent
-    leaves appear, ...), as in the JAX package.
+    * ``"numpy"`` -- the host CART oracle
+      (:func:`repro_torch.core.tree.train_tree`), one subtree at a time;
+    * ``"torch"`` -- the level-synchronous histogram grower
+      (``repro_torch.fit``, the port's name for the JAX package's
+      ``"jax"``): each partition's subtree fleet grows together on
+      ``device`` (``None`` = the card; raises without one),
+      structurally identical to the numpy trees node-for-node (the
+      contract in ``repro_torch.core.tree``).  ``device`` is read by this
+      trainer only.
+
+    Each partition's fleet grows inside the span ``fit/level``; the JAX
+    package's labelled ``fit_trees_total{trainer}`` and
+    ``fit_level_seconds{trainer}`` wait for the registry's labels
+    (ROADMAP A.10).  SIDs are assigned in partition-major level order
+    (partition 0's subtree, then partition 1's subtrees in the order
+    their parent leaves appear, ...) so both trainers number subtrees
+    identically.
     """
     n, p_avail, N = X_windows.shape
     p = len(partition_sizes)
     if p > p_avail:
         raise ValueError(f"need {p} windows, dataset has {p_avail}")
-    if trainer == "jax":
-        raise ValueError("trainer='jax' is not ported yet (ROADMAP item "
-                         "A.8, the fit/ grower); use trainer='numpy'")
-    if trainer != "numpy":
-        raise ValueError(f"unknown trainer {trainer!r}; options: numpy")
+    if trainer not in ("numpy", "torch"):
+        raise ValueError(f"unknown trainer {trainer!r}; options: numpy, "
+                         "torch")
     y = np.asarray(y, dtype=np.int64)
     C = int(n_classes if n_classes is not None else y.max() + 1)
     allowed = None
@@ -173,10 +185,21 @@ def train_partitioned_dt(
         depth = int(partition_sizes[partition])
         fleet_X = [X_windows[rows, partition, :] for rows, _, _ in frontier]
         fleet_y = [y[rows] for rows, _, _ in frontier]
-        trees = [train_tree(Xs, ys, max_depth=depth, k_features=k,
-                            n_classes=C, min_samples_leaf=min_samples_leaf,
-                            max_bins=max_bins, allowed_features=allowed)
-                 for Xs, ys in zip(fleet_X, fleet_y)]
+        with obs.span("fit/level"):
+            if trainer == "torch":
+                from repro_torch.fit import train_forest
+                trees = train_forest(
+                    fleet_X, fleet_y, max_depth=depth, k_features=k,
+                    n_classes=C, min_samples_leaf=min_samples_leaf,
+                    max_bins=max_bins, allowed_features=allowed,
+                    device=device)
+            else:
+                trees = [train_tree(Xs, ys, max_depth=depth, k_features=k,
+                                    n_classes=C,
+                                    min_samples_leaf=min_samples_leaf,
+                                    max_bins=max_bins,
+                                    allowed_features=allowed)
+                         for Xs, ys in zip(fleet_X, fleet_y)]
 
         next_frontier: list[tuple[np.ndarray, int, int]] = []
         last = partition + 1 >= p

@@ -370,12 +370,16 @@ def test_bayes_search_history_equals_jax(small_flow_ds):
 
 
 def test_evaluator_refuses_what_needs_fit():
+    """The JAX package's trainer name is not the port's (``"torch"``);
+    ``win_pkts_te=`` gives the batched evaluator (``repro_torch.fit``)."""
     X = np.zeros((4, 2, F.N_FEATURES), np.float32)
     y = np.zeros(4, np.int64)
-    for kw in ({"trainer": "jax"}, {"win_pkts_te": np.zeros((4, 2, 3, 6))}):
-        with pytest.raises(ValueError, match="A.8"):
-            dse.make_splidt_evaluator(X, y, X, y, n_classes=2, flows=10,
-                                      **kw)
+    with pytest.raises(ValueError, match="unknown trainer"):
+        dse.make_splidt_evaluator(X, y, X, y, n_classes=2, flows=10,
+                                  trainer="jax")
+    ev = dse.make_splidt_evaluator(X, y, X, y, n_classes=2, flows=10,
+                                   win_pkts_te=np.zeros((4, 2, 3, 6)))
+    assert callable(ev.evaluate_batch) and ev.evaluate_batch([]) == []
     with pytest.raises(ValueError, match="unknown trainer"):
         dse.make_splidt_evaluator(X, y, X, y, n_classes=2, flows=10,
                                   trainer="sklearn")

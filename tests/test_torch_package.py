@@ -201,7 +201,7 @@ def test_cuda_impl_on_cpu_engine_raises(tiny_model):
         EngineOptions(block_b=0)
     with pytest.raises(ValueError, match="fewer windows"):
         eng.run(window_packets(ds, 1))
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="unknown trainer"):
         train_partitioned_dt(X, ds.labels, partition_sizes=[1, 1], k=2,
                              trainer="jax")
 
