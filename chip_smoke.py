@@ -49,7 +49,28 @@ exits nonzero; nothing is caught and passed over):
    dense and compacted walks with and without the trace, of ``Engine.run``
    from the device tensor, of each hop's kernel and of ``run_looped``,
    beside their bounds;
-4c. fit    -- the trainer and the DSE's batched evaluator, the third
+4c. stream -- the main path's 2^20 numpy windows streamed on CUDA streams
+   (``run_streaming``, ``impl="cuda"``): at micro-batches of 4,096, 65,536
+   and 262,144 and ``inflight`` 1, 2 and 3 the verdicts equal
+   ``Engine.run`` and the tiled ``pdt.predict``, P hop launches and one
+   ``stream_chunks_total{backend="cuda"}`` a chunk, peak device memory
+   below ``Engine.run``'s on the whole batch; a ragged B, ``stream_batches``
+   over 8 uneven batches, ``make_flow_mesh()``, ``donate=False`` and
+   compacted front and back profiles (P - 1 survivor launches a chunk);
+   flows/s beside ``Engine.run`` from numpy, each chunk's staging, host,
+   upload, walk and fetch times against the streamed time (the overlap
+   gated wherever the upload outlasts the host's cost), a pinned 1 GB
+   upload, and ``Engine.run`` from the device held within 10 % of the walk
+   and fetch it wraps;
+4d. tune   -- ``calibrate`` on the card (the fitted coefficients: the
+   ``cuda`` row of ``tuning.costmodel.DEFAULT_COEFFS``), ``impl="auto"``
+   and ``"tuned"`` plans at the engine shape and at each streaming chunk
+   shape on the dense and the three exit-profile models, each plan's
+   verdicts equal to ``pdt.predict``, a second tuned call a cache hit;
+   at 256 and 4,096 flows ``impl="auto"``'s pick within 10 % of the time
+   of ``"tuned"``'s winner;
+   the tick engine ``tick_engine="auto"`` picks at phase ``serve``'s table;
+4e. fit    -- the trainer and the DSE's batched evaluator, the third
    path, on ``make_dataset("d2", 2^17, seed=1)`` split 70/30 (91,750 /
    39,322 flows): ``window_features(train, 3)`` on kernel A (launches
    counted; each launch against its plain version on the same views, all
@@ -72,8 +93,9 @@ exits nonzero; nothing is caught and passed over):
 5. serve   -- live serving, the second path: the dataset of phase
    ``fit`` streamed by ``make_packet_stream(profile="steady",
    concurrency=65536)`` in ticks of 32,768 packets through
-   ``FlowTableServer(eng, n_buckets=32768, bucket_size=8)`` (fused tick
-   engine, ``impl=None``: one launch of the tick kernel per tick), then
+   ``FlowTableServer(eng, n_buckets=32768, bucket_size=8,
+   tick_engine="fused")`` (the fused tick engine, passed explicitly;
+   ``impl=None``: one launch of the tick kernel per tick), then
    ``flush()``.  The tick kernel launched once per tick and no other
    serving kernel (no flow spills in this stream, so no batch walk); one
    verdict per flow, each equal to ``Engine.run`` on the rebuilt windows
@@ -174,6 +196,15 @@ FLEET_BATCH = 4           # bayes_search's default proposal batch
 FLEET_SEED = 0
 FLEET_FLOWS = 100_000     # the evaluator's flow target (tests/test_fit.py)
 DSE_SMALL = 1200          # make_dataset("d2", 1200): tests/test_fit.py's data
+# micro-batches of phase stream (4096 is the JAX package's default, 65536
+# the card's, core.inference.MICRO_BATCH) and the probe sizes of phase
+# tune's calibrate
+STREAM_MB = (4096, 65536, 262144)
+CALIBRATE_SIZES = (256, 4096, 65536, 262144)
+HOST_CHUNKS, HOST_CHUNK_FLOWS = 256, 64   # phase stream's host-cost probe
+ROUTE_SIZES = (256, 4096)  # batches at which impl="auto" is held to "tuned"
+ROUTE_MARGIN = 1.10        # auto's pick may take this much of tuned's time
+RUN_MARGIN = 1.10          # Engine.run from the device over its walk+fetch
 LM_ARCH = "rwkv6-1.6b"
 LM_SLOTS, LM_MAX_LEN = 8, 2048
 LM_REQUESTS, LM_MAX_NEW = 16, 16
@@ -895,7 +926,7 @@ def lm_phases(card, smi: str, out_dir: pathlib.Path) -> dict:
             "tolerance": f"o {SCAN_O_TOL} x max(|o|,1), state {SCAN_S_TOL}"}
 
 
-def compact_phase(card) -> dict:
+def compact_phase(card) -> tuple[dict, dict]:
     """Phase ``compact``: for each exit profile, a model trained on
     ``make_profile_dataset(profile, 6000, seed=0xD2)`` walks its test
     windows tiled to B_MAIN flows, dense and compacted (the hop kernel's
@@ -911,7 +942,9 @@ def compact_phase(card) -> dict:
     the dense and compacted walks on the device with and without the
     trace, ``Engine.run`` from a device tensor dense and compacted, each
     compacted hop's kernel and ``run_looped``, each beside its bound (the
-    live flows' windows and carry over 3.35 TB/s)."""
+    live flows' windows and carry over 3.35 TB/s).  Returns the phase's
+    line and, for phases ``stream`` and ``tune``, each profile's model,
+    its untiled test windows and the oracle's verdicts on them."""
     import torch
 
     from repro_torch.core.inference import (
@@ -927,7 +960,7 @@ def compact_phase(card) -> dict:
     from repro_torch.kernels import feature_window as fw
     from repro_torch.kernels.compaction import compact_perm
     t_phase = time.perf_counter()
-    out = {}
+    out, models = {}, {}
     for profile in EXIT_PROFILES:
         t0 = time.perf_counter()
         ds = make_profile_dataset(profile, n_flows=6000, seed=0xD2)
@@ -938,8 +971,10 @@ def compact_phase(card) -> dict:
         reps = -(-B_MAIN // wp_te.shape[0])
         tile = lambda a: np.tile(a, (reps,) + (1,) * (a.ndim - 1))[:B_MAIN]
         x = torch.from_numpy(tile(wp_te)).to(card)      # (B, P, W, 6)
-        oracle = [tile(a) for a in pdt.predict(
-            window_features(te, 3, device="cpu"), return_trace=True)]
+        verdicts = pdt.predict(window_features(te, 3, device="cpu"),
+                               return_trace=True)
+        models[profile] = (pdt, wp_te, verdicts)
+        oracle = [tile(a) for a in verdicts]
         eng = Engine.from_model(pdt)
         dev = eng.tables.dev
         B, P, W = x.shape[0], eng.tables.n_partitions, x.shape[2]
@@ -1118,7 +1153,388 @@ def compact_phase(card) -> dict:
         del x, dense, comp, plain, eng, carry, regs, work, saved
         torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
-    return out
+    return out, models
+
+
+def tiled(a: np.ndarray) -> np.ndarray:
+    """``a`` tiled along its first axis to B_MAIN rows."""
+    reps = -(-B_MAIN // a.shape[0])
+    return np.tile(a, (reps,) + (1,) * (a.ndim - 1))[:B_MAIN]
+
+
+def same_verdicts(res, want, what: str) -> None:
+    """``res``'s labels, recircs and exit partitions equal ``want``'s
+    (an ``EngineResult`` or a (labels, recircs, exit) tuple), int32."""
+    if not isinstance(want, (tuple, list)):
+        want = (want.labels, want.recircs, want.exit_partition)
+    for name, w in zip(("labels", "recircs", "exit_partition"), want):
+        got = getattr(res, name)
+        check(got.dtype == np.int32 and np.array_equal(got, w),
+              f"{what}: {name}")
+
+
+def stream_phase(card, eng, wp: np.ndarray, x, oracle: tuple,
+                 profiles: dict) -> dict:
+    """Phase ``stream``: ``run_streaming`` of the main path's 2^20 numpy
+    windows on CUDA streams.  Gates, each a raise: at micro-batches of
+    4,096, 65,536 and 262,144 flows and ``inflight`` 1, 2 and 3 the
+    verdicts equal ``Engine.run`` and the tiled ``pdt.predict``, the hop
+    kernel launched P times a chunk and ``stream_chunks_total{backend=
+    "cuda"}`` counted every chunk, and the call's peak device memory above
+    what the script holds stays below ``Engine.run``'s on the whole
+    batch; the same verdicts for a ragged B of 2^20 - 1,000, for
+    ``stream_batches`` over 8 uneven batches, on ``make_flow_mesh()``, with
+    ``donate=False`` (accepted, not read), and compacted on the front and
+    back exit profiles (P - 1 survivor-mode launches a chunk).  Times:
+    each call on the host clock after one untimed call of the shape
+    (which pins the staging ring; its time is kept as ``first_call_s``),
+    flows/s from numpy beside ``Engine.run`` from numpy; per chunk the
+    host staging copy, the host's fixed cost of a chunk (a stream of
+    ``HOST_CHUNKS`` chunks of ``HOST_CHUNK_FLOWS`` flows, whose device
+    work is negligible, over its chunks), the upload (CUDA events), the
+    walk and the fetch, their sum over the chunks against the streamed
+    time (the overlap, gated below 1 at every micro-batch whose upload
+    outlasts the host's cost of a chunk, the card's default among
+    them); a single pinned
+    1 GB upload as the link's bound; and ``Engine.run`` from the device
+    tensor ``x`` without the trace beside its walk and fetch alone, in
+    turns, gated within ``RUN_MARGIN`` (the run adds the survivor counts
+    on the device and their record on the host), the walk on the device
+    with and without those counts, and ``_record_walk`` alone."""
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core.inference import (
+        MICRO_BATCH, EngineOptions, _record_walk, fetch, fetch_async,
+        partition_walk,
+    )
+    from repro_torch.kernels import engine_hop as eh
+    from repro_torch.launch.mesh import make_flow_mesh
+    from repro_torch.obs import MetricRegistry
+    from repro_torch.serve import run_streaming, stream_batches
+
+    t_phase = time.perf_counter()
+    P, W = eng.tables.n_partitions, wp.shape[2]
+    B = wp.shape[0]
+    chunk_bytes = lambda mb: mb * P * W * 6 * 4
+
+    def peak_of(fn):
+        """(result, seconds, peak device GB above what was held)."""
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        return res, dt, (torch.cuda.max_memory_allocated() - held) / 1e9
+
+    ref, run_s, run_peak = peak_of(lambda: eng.run(wp, with_trace=False))
+    run_s = statistics.median([run_s] + [peak_of(lambda: eng.run(
+        wp, with_trace=False))[1] for _ in range(2)])
+    same_verdicts(ref, oracle, "Engine.run == tiled pdt.predict")
+
+    runs = []
+    for mb in STREAM_MB:
+        for inflight in (1, 2, 3):
+            opt = EngineOptions(impl="cuda", micro_batch=mb,
+                                inflight=inflight)
+            # the first call of a shape pins its staging ring (PyTorch's
+            # caching host allocator keeps it for the calls after)
+            first_s = peak_of(lambda: run_streaming(eng, wp, options=opt))[1]
+            reg = MetricRegistry()
+            prev = obs.set_registry(reg)
+            eh.launches = eh.survivor_launches = 0
+            res, dt, peak = peak_of(lambda: run_streaming(eng, wp,
+                                                          options=opt))
+            launches = eh.launches
+            obs.set_registry(prev)
+            chunks = -(-B // mb)
+            what = f"run_streaming(mb={mb}, inflight={inflight})"
+            same_verdicts(res, ref, f"{what} == Engine.run")
+            same_verdicts(res, oracle, f"{what} == pdt.predict")
+            counted = reg.counter("stream_chunks_total",
+                                  labels={"backend": "cuda"}).value
+            check(launches == P * chunks and counted == chunks,
+                  f"{what}: {P} hop launches and one counted chunk a "
+                  f"chunk, got {launches} launches, {counted} chunks for "
+                  f"{chunks}")
+            check(peak < run_peak, f"{what}: peak {peak} GB below "
+                  f"Engine.run's {run_peak} GB")
+            if (mb, inflight) == (MICRO_BATCH["cuda"], 2):
+                # the default, timed twice more
+                dt = statistics.median([dt] + [peak_of(
+                    lambda: run_streaming(eng, wp, options=opt))[1]
+                    for _ in range(2)])
+            runs.append({"micro_batch": mb, "inflight": inflight,
+                         "chunks": chunks, "s": dt, "first_call_s": first_s,
+                         "flows_per_s": B / dt, "hop_launches": launches,
+                         "stream_chunks_total": counted,
+                         "peak_above_held_gb": peak,
+                         "ring_gb": inflight * chunk_bytes(mb) / 1e9})
+
+    # each chunk's parts alone: the host staging copy into pinned memory,
+    # the host's fixed cost of a chunk, the upload on a side stream, the
+    # walk and the fetch (CUDA events), against the streamed time at
+    # inflight 2
+    side = torch.cuda.Stream()
+    parts = {}
+    tiny = wp[:HOST_CHUNKS * HOST_CHUNK_FLOWS]
+    tiny_opt = EngineOptions(impl="cuda", micro_batch=HOST_CHUNK_FLOWS)
+    run_streaming(eng, tiny, options=tiny_opt)
+    host_ms = statistics.median(
+        peak_of(lambda: run_streaming(eng, tiny, options=tiny_opt))[1]
+        for _ in range(3)) * 1e3 / HOST_CHUNKS
+
+    for mb in STREAM_MB:
+        host = torch.from_numpy(wp[:mb])
+        stage = torch.empty(host.shape, pin_memory=True)
+        dev_x = torch.empty(host.shape, device=card)
+        stage_ms = statistics.median(
+            host_s(lambda: stage.copy_(host), reps=1) * 1e3
+            for _ in range(7))
+        with torch.cuda.stream(side):
+            h2d_ms = cuda_ms(lambda: dev_x.copy_(stage, non_blocking=True))
+        walk = lambda: partition_walk(
+            dev_x, eng.tables.dev, n_subtrees=eng.tables.n_subtrees,
+            n_partitions=P, hop=eh.engine_hop_kernel, count_survivors=True)
+        walk_ms = cuda_ms(walk)
+        buf = walk()
+        fetch_ms = cuda_ms(lambda: fetch_async(buf)[0].synchronize())
+        chunks = -(-B // mb)
+        streamed = next(r["s"] for r in runs
+                        if (r["micro_batch"], r["inflight"]) == (mb, 2))
+        serial_s = chunks * (stage_ms + host_ms + h2d_ms + walk_ms
+                             + fetch_ms) / 1e3
+        parts[str(mb)] = {"stage_ms": stage_ms, "host_chunk_ms": host_ms,
+                          "h2d_ms": h2d_ms, "walk_ms": walk_ms,
+                          "fetch_ms": fetch_ms,
+                          "chunk_bytes": chunk_bytes(mb),
+                          "upload_outlasts_host": h2d_ms > host_ms,
+                          "sum_over_chunks_s": serial_s,
+                          "streamed_inflight2_s": streamed,
+                          "streamed_over_sum": streamed / serial_s}
+        del stage, dev_x, buf
+    gated = [mb for mb in STREAM_MB if parts[str(mb)]["upload_outlasts_host"]]
+    check(MICRO_BATCH["cuda"] in gated,
+          f"the card's default micro-batch uploads for longer than the "
+          f"host's fixed cost of a chunk: {parts}")
+    for mb in gated:
+        check(parts[str(mb)]["streamed_over_sum"] < 1,
+              f"micro-batch {mb}: the stream overlaps staging, host work, "
+              f"upload, walk and fetch: {parts[str(mb)]}")
+    one_gb = torch.empty(1 << 28, pin_memory=True)
+    one_gb_dev = torch.empty(1 << 28, device=card)
+    link_ms = cuda_ms(lambda: one_gb_dev.copy_(one_gb, non_blocking=True),
+                      reps=5)
+    link = {"bytes": 1 << 30, "ms": link_ms,
+            "gb_per_s": (1 << 30) / link_ms / 1e6,
+            "whole_batch_bound_s": wp.nbytes / ((1 << 30) / link_ms * 1e3)}
+    del one_gb, one_gb_dev
+
+    # Engine.run from the device, with the survivor counts and their
+    # record, against the walk and fetch it wraps, in turns
+    walk_kw = dict(n_subtrees=eng.tables.n_subtrees, n_partitions=P,
+                   hop=eh.engine_hop_kernel)
+    bare = lambda: fetch(partition_walk(x, eng.tables.dev, **walk_kw))
+    full_run = lambda: eng.run(x, with_trace=False)
+    turns = {"walk_and_fetch_s": [], "engine_run_s": []}
+    for fn, key in ((bare, "walk_and_fetch_s"), (full_run, "engine_run_s"),
+                    (full_run, "engine_run_s"), (bare, "walk_and_fetch_s")):
+        turns[key].append(host_s(fn, reps=10))
+    counted = fetch(partition_walk(x, eng.tables.dev, count_survivors=True,
+                                   **walk_kw))
+    survivors = counted[-P:]
+    check(survivors.tolist() == [int(np.count_nonzero(
+        (ref.exit_partition < 0) | (ref.exit_partition >= p)))
+        for p in range(P)], "the walk's survivor counts")
+    record_ms = statistics.median(
+        host_s(lambda: _record_walk(survivors, B, compact=False,
+                                    compact_floor=128), reps=1) * 1e3
+        for _ in range(20))
+    from_device = {k: statistics.median(v) for k, v in turns.items()}
+    from_device.update(
+        turns=turns, record_walk_ms=record_ms,
+        walk_ms=cuda_ms(lambda: partition_walk(x, eng.tables.dev,
+                                               **walk_kw)),
+        walk_counted_ms=cuda_ms(lambda: partition_walk(
+            x, eng.tables.dev, count_survivors=True, **walk_kw)),
+        margin=RUN_MARGIN)
+    check(from_device["engine_run_s"]
+          <= RUN_MARGIN * from_device["walk_and_fetch_s"],
+          f"Engine.run from the device within {RUN_MARGIN} of its walk and "
+          f"fetch: {from_device}")
+
+    checks = {}
+    default = EngineOptions(impl="cuda")
+    ragged = B - 1000
+    res = run_streaming(eng, wp[:ragged], options=default)
+    same_verdicts(res, [a[:ragged] for a in oracle], "ragged B")
+    checks["ragged_B"] = ragged
+    rng = np.random.default_rng(7)
+    cuts = np.sort(rng.choice(np.arange(1, B), 7, replace=False))
+    cuts = [0, *cuts.tolist(), B]
+    outs = list(stream_batches(eng, (wp[a:b] for a, b in zip(cuts, cuts[1:])),
+                               options=default))
+    for name, want in zip(("labels", "recircs", "exit_partition"), oracle):
+        check(np.array_equal(np.concatenate([getattr(o, name)
+                                             for o in outs]), want),
+              f"stream_batches over 8 batches: {name}")
+    checks["stream_batches_sizes"] = np.diff(cuts).tolist()
+    mesh = make_flow_mesh()
+    check(len(mesh.devices) == torch.cuda.device_count(),
+          "make_flow_mesh() takes every visible card")
+    res = run_streaming(eng, wp, options=EngineOptions(
+        impl="cuda", micro_batch=65536, mesh=mesh))
+    same_verdicts(res, oracle, "run_streaming on make_flow_mesh()")
+    checks["mesh_devices"] = [str(d) for d in mesh.devices]
+    res, dt, peak = peak_of(lambda: run_streaming(
+        eng, wp, options=EngineOptions(impl="cuda", donate=False)))
+    same_verdicts(res, oracle, "run_streaming(donate=False)")
+    checks["donate_false"] = {"s": dt, "peak_above_held_gb": peak}
+
+    compacted = {}
+    for profile in ("front", "back"):
+        eng_p, wp_p, want = profiles[profile]
+        mb = 65536
+        dense_opt = EngineOptions(impl="cuda", micro_batch=mb)
+        run_streaming(eng_p, wp_p, options=dense_opt)   # pins the ring
+        eh.launches = eh.survivor_launches = 0
+        res, dt, peak = peak_of(lambda: run_streaming(
+            eng_p, wp_p, options=dense_opt.replace(compact=True)))
+        launches, survivor_launches = eh.launches, eh.survivor_launches
+        chunks = -(-B // mb)
+        P_p = eng_p.tables.n_partitions
+        same_verdicts(res, want, f"{profile}: compacted stream")
+        check(launches == P_p * chunks
+              and survivor_launches == (P_p - 1) * chunks,
+              f"{profile}: P launches a chunk, P - 1 in survivor mode, got "
+              f"{launches}, {survivor_launches} for {chunks} chunks")
+        dense_s = peak_of(lambda: run_streaming(eng_p, wp_p,
+                                                options=dense_opt))[1]
+        compacted[profile] = {"micro_batch": mb, "chunks": chunks,
+                              "hop_launches": launches,
+                              "survivor_launches": survivor_launches,
+                              "s": dt, "dense_s": dense_s,
+                              "peak_above_held_gb": peak}
+    return {"B": B, "P": P, "W": W, "tensor_bytes": wp.nbytes,
+            "engine_run_from_numpy_s": run_s,
+            "engine_run_flows_per_s_from_numpy": B / run_s,
+            "engine_run_peak_above_held_gb": run_peak,
+            "runs": runs, "chunk_parts": parts, "pinned_link": link,
+            "engine_run_from_device_no_trace": from_device,
+            "checks": checks, "compacted": compacted,
+            "verdicts_equal_engine_run_and_predict": True,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def tune_phase(card, eng, wp: np.ndarray, oracle: tuple, profiles: dict,
+               serve_table: tuple) -> dict:
+    """Phase ``tune``: ``calibrate`` on the card (its fitted coefficients
+    and time), then ``impl="auto"`` and ``"tuned"`` plans at the engine
+    shape (``Engine.run`` from numpy) and at each streaming chunk shape
+    (``run_streaming``) on the dense model and the three exit-profile
+    models, each plan's verdicts equal to the tiled ``pdt.predict``; a
+    second ``tuned`` call is a cache hit (``tune_cache_hits_total`` + 1);
+    at each of ``ROUTE_SIZES`` flows from numpy, ``impl="auto"``'s pick
+    (the committed ``cuda`` row) takes at most ``ROUTE_MARGIN`` of the
+    time of ``"tuned"``'s timed winner, both timed in turns, beside the
+    pick of the coefficients this run fitted; the tick engine ``FlowTableServer(tick_engine="auto")`` resolves at
+    phase ``serve``'s table shape.  The autotune cache is a file under
+    ``build/``, removed first."""
+    import os
+
+    import torch
+
+    from repro_torch import obs
+    from repro_torch.core.inference import EngineOptions
+    from repro_torch.serve import FlowTableServer, run_streaming
+    from repro_torch.tuning import ShapeInfo, calibrate, choose_plan
+    from repro_torch.tuning.autotune import CACHE_ENV, time_plan
+    from repro_torch.tuning.costmodel import TERMS
+
+    t_phase = time.perf_counter()
+    cache = ROOT / "build" / "autotune_smoke.json"
+    cache.parent.mkdir(parents=True, exist_ok=True)
+    cache.unlink(missing_ok=True)
+    os.environ[CACHE_ENV] = str(cache)
+    t0 = time.perf_counter()
+    coeffs = calibrate(eng, wp, probe_sizes=CALIBRATE_SIZES,
+                       repeat=3)
+    calibrate_s = time.perf_counter() - t0
+    fitted = {b: {t: getattr(c, t) for t in TERMS}
+              for b, c in coeffs.items()}
+    # printed before any gate of the phase: the fit is the row that
+    # tuning.costmodel.DEFAULT_COEFFS["cuda"] commits
+    emit("calibrate", s=calibrate_s, probe_sizes=CALIBRATE_SIZES,
+         coefficients=fitted)
+
+    def hits():
+        return obs.get_registry().counter("tune_cache_hits_total").value
+
+    cases = {"dense": (eng, wp, oracle), **profiles}
+    plans = {}
+    for name, (e, w, want) in cases.items():
+        rows = plans[name] = {}
+        for impl in ("auto", "tuned"):
+            res = e.run(w, with_trace=False, options=EngineOptions(impl=impl))
+            same_verdicts(res, want, f"{name}: Engine.run(impl={impl})")
+            rows[f"engine/{impl}"] = res.plan.describe()
+            if impl == "tuned":
+                before = hits()
+                again = e.run(w, with_trace=False,
+                              options=EngineOptions(impl=impl))
+                same_verdicts(again, want, f"{name}: tuned, again")
+                check(hits() == before + 1 and again.plan.source == "cache",
+                      f"{name}: the second tuned call is a cache hit")
+            for mb in STREAM_MB:
+                res = run_streaming(e, w, options=EngineOptions(
+                    impl=impl, micro_batch=mb))
+                same_verdicts(res, want,
+                              f"{name}: run_streaming(impl={impl}, mb={mb})")
+                rows[f"stream{mb}/{impl}"] = res.plan.describe()
+    del cases
+
+    def same_route(a, b):
+        return ((a.backend, a.compact, a.compact_floor)
+                == (b.backend, b.compact, b.compact_floor))
+
+    routes = {}
+    for n in ROUTE_SIZES:
+        w = wp[:n]
+        auto = eng.run(w, with_trace=False,
+                       options=EngineOptions(impl="auto")).plan
+        tuned = eng.run(w, with_trace=False,
+                        options=EngineOptions(impl="tuned")).plan
+        fitted_pick = choose_plan(ShapeInfo.from_engine(eng, w),
+                                  platform="cuda", coeffs=coeffs)
+        us = {"auto": [], "tuned": []}
+        for _ in range(3):
+            for name, plan in (("auto", auto), ("tuned", tuned)):
+                us[name].append(time_plan(eng, w, plan, repeat=10))
+        auto_us, tuned_us = (statistics.median(us[k])
+                             for k in ("auto", "tuned"))
+        routes[str(n)] = {"auto": auto.describe(),
+                          "tuned": tuned.describe(),
+                          "fitted_pick": fitted_pick.describe(),
+                          "auto_us": auto_us, "tuned_us": tuned_us,
+                          "turns_us": us, "margin": ROUTE_MARGIN}
+        check(same_route(auto, tuned) or auto_us <= ROUTE_MARGIN * tuned_us,
+              f"{n} flows: impl='auto' picks no slower than 'tuned': "
+              f"{routes[str(n)]}")
+    srv = FlowTableServer(eng, n_buckets=serve_table[0],
+                          bucket_size=serve_table[1])
+    tick = {"table_slots": srv.table.capacity, "tick_engine": srv.tick_engine,
+            "impl": "cuda" if srv._cuda else "fused"}
+    del srv
+    torch.cuda.empty_cache()
+    return {"calibrate_s": calibrate_s, "probe_sizes": CALIBRATE_SIZES,
+            "coefficients": fitted, "plans": plans, "routes": routes,
+            "tick_auto": tick,
+            "cache_file_entries": len(json.loads(cache.read_text())[
+                "entries"]),
+            "verdicts_equal_predict": True,
+            "phase_s": time.perf_counter() - t_phase}
 
 
 def window_feature_calls(wp, rows, batch: int) -> list[tuple]:
@@ -1600,6 +2016,7 @@ def main() -> int:
                                                           device="cpu"),
                                           return_trace=True)
     tile = lambda a: np.tile(a, reps)[:B_MAIN]
+    main_oracle = (tile(labels), tile(recircs), tile(exit_p))
     for name, want in (("labels", labels), ("recircs", recircs),
                        ("exit_partition", exit_p)):
         got = getattr(res, name)
@@ -1919,10 +2336,21 @@ def main() -> int:
          two_kernel_walk=profile_run(lambda: two_kernel.run(eng, x)))
 
     # -- 4b. early-exit compaction on each exit profile ----------------------
-    compact_out = compact_phase(card)
+    compact_out, profile_models = compact_phase(card)
     emit("compact", card=smi, **compact_out)
 
-    # -- 4c. the trainer and the DSE's batched evaluator ---------------------
+    # -- 4c. streaming on CUDA streams, and the router -----------------------
+    # each profile's engine, its test windows tiled to B_MAIN and the
+    # tiled oracle verdicts
+    profiles = {prof: (Engine.from_model(p), tiled(w), [tiled(a) for a in v])
+                for prof, (p, w, v) in profile_models.items()}
+    stream_out = stream_phase(card, eng, wp, x, main_oracle, profiles)
+    emit("stream", card=smi, **stream_out)
+    tune_out = tune_phase(card, eng, wp, main_oracle, profiles, SERVE_TABLE)
+    emit("tune", card=smi, **tune_out)
+    del profile_models, profiles
+
+    # -- 4d. the trainer and the DSE's batched evaluator ---------------------
     ds_s = make_dataset("d2", SERVE_FLOWS, seed=1)      # serve streams it
     fit_out = fit_phase(card, ds_s)
     emit("fit", card=smi, **fit_out)
@@ -1933,9 +2361,9 @@ def main() -> int:
                                 concurrency=SERVE_CONCURRENCY)
     serve_setup_s = time.perf_counter() - t0
     srv = FlowTableServer(eng, n_buckets=SERVE_TABLE[0],
-                          bucket_size=SERVE_TABLE[1])
+                          bucket_size=SERVE_TABLE[1], tick_engine="fused")
     check(srv._cuda and srv.tick_engine == "fused",
-          "the default server runs the kernels in the fused tick engine")
+          "the server runs the kernels in the fused tick engine")
     ticks = list(stream.ticks(SERVE_TICK))
     profiled = len(ticks) // 2          # a steady-state tick, traced
     calls, tick_s, tick_dispatches, shapes = [], [], [], []
@@ -2131,7 +2559,7 @@ def main() -> int:
     # whose inputs serve_times then replays
     main_log = new_tick_log()
     srv_m = FlowTableServer(eng, n_buckets=SERVE_TABLE[0],
-                            bucket_size=SERVE_TABLE[1])
+                            bucket_size=SERVE_TABLE[1], tick_engine="fused")
     first_checked = profiled + 1 - MAIN_TICKS_CHECKED
     checker = tick_vs_plain(tk, main_log)
     for i, batch in enumerate(ticks[:profiled + 1]):
@@ -2159,7 +2587,8 @@ def main() -> int:
         log = new_tick_log()
         tk.tick_launches = eh.launches = 0
         srv_w = FlowTableServer(eng_w, n_buckets=WIDE_TABLE[0],
-                                bucket_size=WIDE_TABLE[1])
+                                bucket_size=WIDE_TABLE[1],
+                                tick_engine="fused")
         stream_w = make_packet_stream(ds_w, seed=kk, profile="steady",
                                       concurrency=WIDE_CONCURRENCY)
         tk.tick_step = tick_vs_plain(tk, log)
@@ -2355,6 +2784,15 @@ def main() -> int:
          "bound_ms": bound_hop, "bound_by": by_hop, "library_ms": None,
          "shape": f"B={B_MAIN},W={W},k={k},S={S},T={T},L={L}",
          "equal": True,
+         "stream": {
+             "launches_path": "stream: run_streaming(impl='cuda') of the "
+                              "2^20 windows, P a chunk",
+             "launches": sum(r["hop_launches"] for r in stream_out["runs"]),
+             "runs": {f"mb={r['micro_batch']},inflight={r['inflight']}":
+                      r["hop_launches"] for r in stream_out["runs"]},
+             "compacted": {prof: {k: c[k] for k in (
+                 "hop_launches", "survivor_launches")}
+                 for prof, c in stream_out["compacted"].items()}},
          "survivor_mode": {
              prof: {"shape": f"B={c['B']},W={c['W']},k={c['k']},"
                              f"S={c['S']}, survivors "

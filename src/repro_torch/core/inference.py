@@ -29,6 +29,15 @@ arrays are views of that host copy, owned by the result.
   tables, kernel A then kernel B behind the SID dispatch on the card,
   their plain versions on the CPU.
 
+Backend selection is ``repro_torch.tuning.resolve_route``, shared with
+the streaming scheduler and the flow-table server:
+``EngineOptions(impl=None)`` is ``cuda`` on a CUDA engine and ``fused``
+on a CPU one, a backend name forces it, ``impl="auto"`` routes through
+the cost model and ``impl="tuned"`` through the cached autotuner; both
+resolve a ``Plan`` (backend and compaction) for the batch's shape and
+attach it to ``EngineResult.plan``.  :func:`get_backend` maps a name to
+its backend.
+
 Every backend takes ``compact=True``, early-exit compaction
 (``kernels.compaction``): hop 0 runs dense, each later hop only on the
 flows still walking, and the trace row of a hop holds zeros for the
@@ -41,10 +50,14 @@ engine bit for bit (docs/PARITY.md).  A flow that never takes an exit
 action reports ``-1`` sentinels (labels and exit partition), counted by
 ``EngineResult.n_unterminated``.
 
-Not ported yet: streaming and the ``auto``/``tuned`` routing (ROADMAP
-items A.7, A.9), and the engine's labelled counters
-(``engine_hop_survivors_total`` and the others, A.10).  Live per-packet
-serving is ``repro_torch.serve.flowtable``.
+Each run records the JAX engine's labelled counters into the process
+registry (``repro_torch.obs``): ``engine_dispatches_total{backend}``,
+``engine_hop_survivors_total{hop}`` and, for a compacted walk on the
+plain hop's ladder, ``engine_compact_bucket_total{hop,cap}``; the walk
+and its fetch run in the spans ``engine/dispatch`` and ``engine/fetch``.
+Batches larger than one device batch stream through
+``Engine.run_streaming`` (``repro_torch.serve.streaming``); live
+per-packet serving is ``repro_torch.serve.flowtable``.
 """
 from __future__ import annotations
 
@@ -54,6 +67,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core.partition import PartitionedDT
 from repro_torch.core.range_tables import pack_range_exec
 from repro_torch.core.tables import pack_tables
@@ -70,6 +84,9 @@ class EngineResult:
     recircs: np.ndarray          # (B,) int32 partition transitions
     exit_partition: np.ndarray   # (B,) int32 exit hop; -1 sentinel as above
     regs_trace: list[np.ndarray] # per-partition (B, k) f32 registers
+    plan: "object | None" = None # repro_torch.tuning.Plan when impl="auto"/
+                                 # "tuned" (or compact="auto") resolved the
+                                 # route; None for a forced impl
 
     @property
     def n_unterminated(self) -> int:
@@ -82,49 +99,86 @@ class EngineResult:
 # contract of the walk backends; rows / n_active / caps compact the hop
 HopFn = Callable[..., None]
 
-_IMPLS = (None, "fused", "cuda", "looped")
+_IMPLS = (None, "auto", "tuned", "fused", "cuda", "looped")
+
+#: Streaming chunk size a device type reads when ``EngineOptions
+#: .micro_batch`` is None: 65,536 flows on a card (``chip_smoke.py`` phase
+#: ``stream``: the fastest chunk there, and the smallest at which the
+#: upload outlasts the host's dispatch of a chunk), the JAX package's
+#: 4,096 on the CPU.
+MICRO_BATCH = {"cuda": 65536, "cpu": 4096}
 
 
 @dataclasses.dataclass(frozen=True)
 class EngineOptions:
-    """Engine execution knobs.
+    """All engine execution knobs, in one frozen value.
 
-    ``impl``: ``None`` (``cuda`` on a CUDA engine, ``fused`` on a CPU
-    one), ``"fused"`` (plain PyTorch), ``"cuda"`` (the hop kernel; a
-    CPU engine refuses it) or ``"looped"`` (the host loop, per-op
-    kernels on a CUDA engine).  ``compact``: early-exit compaction
-    between hops (``True``/``False``; the JAX package's ``"auto"`` needs
-    the cost model).  ``compact_floor``: the smallest non-empty rung of
-    the plain compacted step's capacity ladder; on the card the hop
-    kernel's survivor mode needs no ladder and does not read it, and the
-    looped backend compacts exactly.  ``block_b``: flow-block rows of
-    the SID dispatch in the JAX package's Pallas walk, kept for API
-    parity: the hop kernel needs no SID dispatch and does not read it,
-    the looped backend dispatches with the default (the legacy tick
-    engine's range match reads it, through ``FlowTableServer``).
+    ``Engine.run`` / ``run_looped`` / ``run_streaming`` and the serving
+    layer (``repro_torch.serve``) take ``options=EngineOptions(...)``;
+    each reads the knobs that apply to it and ignores the rest.
+
+    ===============  =====================================================
+    knob             meaning
+    ===============  =====================================================
+    impl             ``None`` (``cuda`` on a CUDA engine, ``fused`` on a
+                     CPU one), a backend (``fused``: plain PyTorch;
+                     ``cuda``: the hop kernel, CUDA engines only;
+                     ``looped``: the host loop), ``"auto"`` (cost model)
+                     or ``"tuned"`` (autotune cache); see
+                     ``repro_torch.tuning``
+    plan             a resolved ``repro_torch.tuning.Plan``; wins over
+                     ``impl`` and ``compact``
+    compact          early-exit compaction between hops: True/False, or
+                     ``"auto"`` (the routing plan decides)
+    compact_floor    smallest non-empty rung of the plain ``fused`` hop's
+                     capacity ladder (the hop kernel's survivor mode and
+                     the looped backend compact exactly and do not read
+                     it)
+    block_b          flow-block rows of the legacy tick engine's SID
+                     dispatch (``FlowTableServer``); no walk reads it
+    micro_batch      streaming chunk size (flows per dispatch); None =
+                     ``MICRO_BATCH`` for the engine's device: 65,536 on a
+                     card, where smaller chunks leave the stream bound by
+                     the host's per-chunk dispatch, and the JAX
+                     package's 4,096 on the CPU
+    inflight         streaming pipeline depth (chunks in flight)
+    donate           accepted for the JAX package's signature and not
+                     read: on a card the staging and device rings of
+                     ``inflight`` chunks always serve every chunk, which
+                     is what donation buys there
+    mesh             ``repro_torch.launch.mesh.FlowMesh`` to shard each
+                     streamed chunk's flows over
+    ===============  =====================================================
     """
     impl: str | None = None
-    compact: bool = False
+    plan: "object | None" = None
+    compact: bool | str = False
     compact_floor: int = compaction.COMPACT_FLOOR
     block_b: int | None = None
+    micro_batch: int | None = None
+    inflight: int = 2
+    donate: bool | None = None
+    mesh: "object | None" = None
 
     def __post_init__(self):
-        if self.impl in ("auto", "tuned"):
-            raise ValueError(f"impl={self.impl!r} needs repro.tuning, which "
-                             "is not ported yet (ROADMAP A.9)")
         if self.impl not in _IMPLS:
             raise ValueError(f"unknown impl {self.impl!r}; options: "
                              + ", ".join(str(i) for i in _IMPLS))
-        if self.compact == "auto":
-            raise ValueError("compact='auto' needs repro.tuning, which is "
-                             "not ported yet (ROADMAP A.9)")
-        if self.compact not in (True, False):
+        if self.compact not in (True, False, "auto"):
             raise ValueError(
-                f"compact must be True or False, got {self.compact!r}")
+                f"compact must be True, False or 'auto', got {self.compact!r}")
         if self.compact_floor <= 0:
             raise ValueError("compact_floor must be positive")
         if self.block_b is not None and self.block_b <= 0:
             raise ValueError("block_b must be positive")
+        if self.micro_batch is not None and self.micro_batch <= 0:
+            raise ValueError("micro_batch must be positive")
+        if self.inflight <= 0:
+            raise ValueError("inflight must be positive")
+
+    def replace(self, **changes) -> "EngineOptions":
+        """``dataclasses.replace`` as a method."""
+        return dataclasses.replace(self, **changes)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -138,29 +192,34 @@ class EngineTables:
 
 
 def _walk_buffers(B: int, P: int, k: int, with_trace: bool,
-                  device: torch.device):
+                  device: torch.device, *, survivors: bool = False):
     """The walk's fetch buffer and its views.
 
-    One int32 buffer of ``3 B + P B k`` words (``3 B`` without the trace):
-    ``labels | recircs | exit_partition | trace``, the (P, B, k) f32
-    register trace bit-cast.  ``labels`` / ``exit_partition`` start at the
-    ``-1`` sentinel so a flow that never takes an exit action is
-    distinguishable from a class-0 verdict at partition 0.  Returns
-    ``(buf, carry, trace)``: ``carry`` is ``(sid, done, labels, recircs,
-    exit_p)`` with the last three views of ``buf``, every flow at the
-    root SID 0; ``trace`` is None without the trace.
+    One int32 buffer of ``3 B + P B k (+ P)`` words: ``labels | recircs |
+    exit_partition | trace | survivors``, the (P, B, k) f32 register
+    trace bit-cast (without the trace, no words) and, with ``survivors``,
+    the P flows still walking when each hop starts.  ``labels`` /
+    ``exit_partition`` start at the ``-1`` sentinel so a flow that never
+    takes an exit action is distinguishable from a class-0 verdict at
+    partition 0.  Returns ``(buf, carry, trace)``: ``carry`` is ``(sid,
+    done, labels, recircs, exit_p)`` with the last three views of
+    ``buf``, every flow at the root SID 0; ``trace`` is None without the
+    trace.
     """
-    buf = torch.empty(3 * B + (P * B * k if with_trace else 0),
+    n_trace = P * B * k if with_trace else 0
+    buf = torch.empty(3 * B + n_trace + (P if survivors else 0),
                       dtype=torch.int32, device=device)
     labels, recircs, exit_p = buf[:3 * B].view(3, B)
     labels.fill_(-1)
     recircs.zero_()
     exit_p.fill_(-1)
+    if survivors:
+        buf[-P:].zero_()
     carry = (torch.zeros(B, dtype=torch.int32, device=device),  # sid: root
              torch.zeros(B, dtype=torch.bool, device=device),   # done
              labels, recircs, exit_p)
-    trace = (buf[3 * B:].view(torch.float32).view(P, B, k) if with_trace
-             else None)
+    trace = (buf[3 * B:3 * B + n_trace].view(torch.float32).view(P, B, k)
+             if with_trace else None)
     return buf, carry, trace
 
 
@@ -174,6 +233,7 @@ def partition_walk(
     hop: HopFn = engine_hop_plain,
     compact: bool = False,
     compact_floor: int = compaction.COMPACT_FLOOR,
+    count_survivors: bool = False,
 ) -> torch.Tensor:
     """Device-resident partition walk over the first ``n_partitions``
     windows.
@@ -181,7 +241,11 @@ def partition_walk(
     Returns the walk's fetch buffer (see :func:`_walk_buffers`) on the
     windows' device.  A Python loop over P with no host sync: each hop
     reads its window ``win_pkts[:, p]`` in place and updates the carry,
-    whose verdict fields live in the buffer.
+    whose verdict fields live in the buffer.  ``count_survivors`` appends
+    the per-hop survivor counts, made on the device with no host sync:
+    the flows done after each hop but the last are summed from the
+    carry's ``done`` flags (one reduction a hop) and taken from B at the
+    end, so the host records them from P fetched words.
 
     With ``compact`` (the JAX package's ``_compacted_walk``) hop 0 runs
     dense and each later hop gets the survivor-first permutation of the
@@ -194,10 +258,13 @@ def partition_walk(
     """
     B = win_pkts.shape[0]
     buf, carry, trace = _walk_buffers(B, n_partitions, dev.slot_op.shape[1],
-                                      with_trace, win_pkts.device)
+                                      with_trace, win_pkts.device,
+                                      survivors=count_survivors)
     if compact and trace is not None:
         trace[1:].zero_()
     caps = compaction.bucket_caps(B, compact_floor) if compact else None
+    # done before each hop; survivors = B - done, in place at the end
+    done_before = buf[-n_partitions:] if count_survivors else None
     for p in range(n_partitions):
         survivors = {}
         if compact and p:
@@ -205,49 +272,100 @@ def partition_walk(
             survivors = dict(rows=rows, n_active=n_active, caps=caps)
         hop(win_pkts[:, p], carry, dev, p, n_subtrees=n_subtrees,
             regs_out=None if trace is None else trace[p], **survivors)
+        if done_before is not None and p + 1 < n_partitions:
+            torch.sum(carry[1], 0, dtype=torch.int32, out=done_before[p + 1])
+    if done_before is not None:
+        done_before.neg_().add_(B)
     return buf
 
 
-def fetch(buf: torch.Tensor) -> np.ndarray:
-    """The walk's buffer on the host, in memory no later run touches.
+def fetch_async(buf: torch.Tensor):
+    """Start copying the walk's buffer to the host: ``(event, host)``.
 
-    A card's buffer is copied asynchronously into pinned memory from
-    PyTorch's caching host allocator, one block per call; the returned
-    array is a view that keeps the block alive, so the block is reused
-    only once every array of the result is gone.  A CPU buffer is its
-    own host copy."""
+    A card's buffer is copied with ``non_blocking=True`` on the current
+    stream into pinned memory from PyTorch's caching host allocator, and
+    an event is recorded after the copy; ``host`` (a numpy view of the
+    pinned block, which it keeps alive) holds the buffer once the event
+    has completed.  A CPU buffer is its own host copy, with no event.
+    """
     if buf.device.type != "cuda":
-        return buf.numpy()
+        return None, buf.numpy()
     host = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True)
     host.copy_(buf, non_blocking=True)
-    torch.cuda.current_stream(buf.device).synchronize()
-    return host.numpy()
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(buf.device))
+    return done, host.numpy()
+
+
+def fetch(buf: torch.Tensor) -> np.ndarray:
+    """The walk's buffer on the host, in memory no later run touches:
+    :func:`fetch_async`, then a wait on its event.  The returned array is
+    a view that keeps its pinned block alive, so the block is reused only
+    once every array of the result is gone."""
+    done, host = fetch_async(buf)
+    if done is not None:
+        done.synchronize()
+    return host
+
+
+def _record_walk(survivors, B: int, *, compact: bool,
+                 compact_floor: int) -> None:
+    """Record the per-hop survivor counts (the walk's fetched
+    ``survivors`` words, :func:`partition_walk`) and, for a compacted
+    walk on the plain hop's ladder over ``B`` flows, the rung each hop
+    padded its survivors to: the JAX package's ``_record_walk``, which
+    derives the same counts on the host from the B exits."""
+    reg = obs.get_registry()
+    caps = compaction.bucket_caps(B, compact_floor) if compact else None
+    for p, s in enumerate(int(n) for n in survivors):
+        reg.counter(
+            "engine_hop_survivors_total",
+            "flows still walking when each hop starts",
+            labels={"hop": str(p)}).inc(s)
+        if caps is not None:
+            cap = next(c for c in caps if c >= s)
+            reg.counter(
+                "engine_compact_bucket_total",
+                "capacity-ladder bucket the hop's survivors padded to",
+                labels={"hop": str(p), "cap": str(cap)}).inc()
 
 
 @dataclasses.dataclass(frozen=True)
 class WalkBackend:
     """The device walk with one host fetch per batch; routes differ only
-    in the per-partition ``hop``."""
+    in the per-partition ``hop``.  ``ladder``: whether a compacted hop
+    runs the plain capacity ladder (``engine_compact_bucket_total``
+    counts its rungs); the hop kernel walks the exact survivors."""
     name: str
     hop: HopFn
+    ladder: bool = True
 
     def run(self, engine: "Engine", win_pkts, *, with_trace: bool = True,
             options: EngineOptions | None = None) -> EngineResult:
         opt = options if options is not None else EngineOptions()
         P = engine._check_windows(win_pkts)
-        # f32 on the engine's device, as the JAX engine's jnp.asarray
-        x = torch.as_tensor(win_pkts[:, :P]).to(device=engine.device,
-                                                 dtype=torch.float32)
-        B = x.shape[0]
         k = engine.tables.dev.slot_op.shape[1]
-        # ONE device->host transfer for the whole batch: the f32 trace
-        # rides along bit-cast to int32
-        host = fetch(partition_walk(
-            x, engine.tables.dev, n_subtrees=engine.tables.n_subtrees,
-            n_partitions=P, with_trace=with_trace, hop=self.hop,
-            compact=opt.compact, compact_floor=opt.compact_floor))
+        with obs.span("engine/dispatch"):
+            # f32 on the engine's device, as the JAX engine's jnp.asarray
+            x = torch.as_tensor(win_pkts[:, :P]).to(device=engine.device,
+                                                     dtype=torch.float32)
+            buf = partition_walk(
+                x, engine.tables.dev, n_subtrees=engine.tables.n_subtrees,
+                n_partitions=P, with_trace=with_trace, hop=self.hop,
+                compact=bool(opt.compact), compact_floor=opt.compact_floor,
+                count_survivors=True)
+            obs.get_registry().counter(
+                "engine_dispatches_total", "walk calls issued",
+                labels={"backend": self.name}).inc()
+        B = x.shape[0]
+        with obs.span("engine/fetch"):
+            # ONE device->host transfer for the whole batch: the f32
+            # trace and the survivor counts ride along
+            host = fetch(buf)
         labels, recircs, exit_p = (host[i * B:(i + 1) * B] for i in range(3))
-        trace = (list(host[3 * B:].view(np.float32).reshape(P, B, k))
+        _record_walk(host[-P:], B, compact=bool(opt.compact) and self.ladder,
+                     compact_floor=opt.compact_floor)
+        trace = (list(host[3 * B:-P].view(np.float32).reshape(P, B, k))
                  if with_trace else [])
         return EngineResult(labels, recircs, exit_p, trace)
 
@@ -288,7 +406,12 @@ class LoopedBackend:
                  torch.zeros(B, dtype=torch.int32),
                  torch.full((B,), -1, dtype=torch.int32))
         regs_trace: list[np.ndarray] = []
+        reg_obs = obs.get_registry()
         for p in range(P):
+            reg_obs.counter(
+                "engine_hop_survivors_total",
+                "flows still walking when each hop starts",
+                labels={"hop": str(p)}).inc(int(B - carry[1].sum()))
             rows = (np.nonzero(~carry[1].numpy())[0] if compact and p
                     else np.arange(B))
             dense = rows.size == B
@@ -303,6 +426,9 @@ class LoopedBackend:
                 sid_d = carry[0][rows].to(engine.device)
                 regs_d = ops.feature_window_dev(pkts, sid_d, dev)
                 action_d = ops.dt_traverse_dev(regs_d, sid_d, dev)
+                reg_obs.counter(
+                    "engine_dispatches_total", "walk calls issued",
+                    labels={"backend": "looped"}).inc(2)
                 # the hop's one sync: its actions (and registers) back
                 action_h = action_d.cpu()
                 if with_trace:
@@ -325,14 +451,68 @@ class LoopedBackend:
 
 
 FUSED_BACKEND = WalkBackend(name="fused", hop=engine_hop_plain)
-HOP_BACKEND = WalkBackend(name="cuda", hop=engine_hop_kernel)
+HOP_BACKEND = WalkBackend(name="cuda", hop=engine_hop_kernel, ladder=False)
 LOOPED_BACKEND = LoopedBackend()
+
+_BACKENDS = {"fused": FUSED_BACKEND, "cuda": HOP_BACKEND,
+             "looped": LOOPED_BACKEND}
+
+
+def backend_for_plan(plan) -> "WalkBackend | LoopedBackend":
+    """The backend of a :class:`repro_torch.tuning.Plan`."""
+    return _BACKENDS[plan.backend]
+
+
+def get_backend(impl: str = "auto", shape=None, *,
+                device: "str | torch.device | None" = None):
+    """Backend selection matrix.
+
+    ==========  =====================================================
+    impl        backend
+    ==========  =====================================================
+    auto        with ``shape`` (a ``repro_torch.tuning.ShapeInfo``):
+                the cost model's argmin for that workload on
+                ``device``'s platform; without: ``cuda`` on a CUDA
+                device, ``fused`` elsewhere
+    tuned       resolved by ``Engine.run`` / ``run_streaming`` through
+                the autotune cache; refused here (it needs an engine
+                and a batch to probe)
+    fused       the plain PyTorch walk
+    cuda        the hop-kernel walk (a CUDA device only)
+    looped      the host loop, one sync a hop
+    ==========  =====================================================
+
+    ``device`` defaults to the card when one is visible, else the CPU.
+    """
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    on_card = torch.device(device).type == "cuda"
+    if impl == "tuned":
+        raise ValueError(
+            "impl='tuned' is shape-dependent; use Engine.run / "
+            "run_streaming (they resolve it through repro_torch.tuning)")
+    if impl == "auto":
+        if shape is not None:
+            from repro_torch.tuning import choose_plan
+            return backend_for_plan(choose_plan(
+                shape, platform="cuda" if on_card else "cpu"))
+        impl = "cuda" if on_card else "fused"
+    if impl == "cuda" and not on_card:
+        raise ValueError("impl='cuda' needs an engine on a CUDA device; "
+                         f"this one is on {device}")
+    try:
+        return _BACKENDS[impl]
+    except KeyError:
+        raise ValueError(f"unknown impl {impl!r}; options: auto, tuned, "
+                         + ", ".join(sorted(_BACKENDS))) from None
 
 
 @dataclasses.dataclass
 class Engine:
     tables: EngineTables
     device: torch.device
+    _replicas: dict = dataclasses.field(default_factory=dict, repr=False,
+                                        compare=False)
 
     @classmethod
     def from_model(cls, pdt: PartitionedDT,
@@ -351,37 +531,59 @@ class Engine:
         """An engine over already-uploaded tables (see ``convert``)."""
         return cls(tables=tables, device=tables.dev.slot_op.device)
 
+    def tables_on(self, device: "str | torch.device") -> ops.DeviceTables:
+        """The engine's device tables on ``device``: its own on its own
+        device, else a replica uploaded once and cached on the engine
+        (the streaming scheduler's per-device copies)."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if device == self.tables.dev.slot_op.device:
+            return self.tables.dev
+        rep = self._replicas.get(device)
+        if rep is None:
+            rep = self._replicas[device] = ops.DeviceTables(
+                *(t.to(device) for t in self.tables.dev))
+        return rep
+
     def _check_windows(self, win_pkts) -> int:
         if win_pkts.shape[1] < self.tables.n_partitions:
             raise ValueError("fewer windows than partitions")
         return self.tables.n_partitions
-
-    def _backend(self, opt: EngineOptions):
-        """Resolve the options against this engine's device."""
-        impl = opt.impl or ("cuda" if self.device.type == "cuda"
-                            else "fused")
-        if impl == "fused":
-            return FUSED_BACKEND
-        if impl == "looped":
-            return LOOPED_BACKEND
-        if self.device.type != "cuda":
-            raise ValueError("impl='cuda' needs an engine on a CUDA device; "
-                             f"this one is on {self.device}")
-        return HOP_BACKEND
 
     def run(self, win_pkts, *, with_trace: bool = True,
             options: EngineOptions | None = None) -> EngineResult:
         """``win_pkts``: (B, p, W, PKT_NFIELDS) from ``window_packets``,
         as a numpy array or a tensor (moved to the engine's device).
 
-        ``options.impl`` picks the backend and ``options.compact`` turns
-        on early-exit compaction (see :class:`EngineOptions`); every
-        route is bit-identical, so the choice changes speed, never
-        results.
+        ``options.plan`` (a resolved ``repro_torch.tuning.Plan``) wins
+        outright; otherwise ``options.impl``: a backend name (or ``None``,
+        the device's default) runs that backend, ``"auto"`` routes through
+        the cost model for this batch's shape and ``"tuned"`` through the
+        autotune cache (the first call on a new shape and device times a
+        shortlist).  ``compact=True`` compacts between hops, ``"auto"``
+        lets the plan decide.  A plan that decided the route lands on
+        ``EngineResult.plan``.  Every route is bit-identical, so the
+        choice changes speed, never results.
         """
+        from repro_torch.tuning import resolve_route
         opt = options if options is not None else EngineOptions()
-        return self._backend(opt).run(self, win_pkts, with_trace=with_trace,
-                                      options=opt)
+        name, compact, floor, plan = resolve_route(self, opt, win_pkts)
+        res = get_backend(name, device=self.device).run(
+            self, win_pkts, with_trace=with_trace, options=EngineOptions(
+                compact=compact, compact_floor=floor))
+        res.plan = plan
+        return res
+
+    def run_streaming(self, win_pkts, *,
+                      options: EngineOptions | None = None) -> EngineResult:
+        """Chunk ``win_pkts`` (numpy, B unbounded) into micro-batches and
+        stream them through a walk backend, with ``options.inflight``
+        chunks in the pipeline and, with ``options.mesh``, each chunk's
+        flows sharded over the mesh's devices.  Equal to ``run(win_pkts,
+        with_trace=False)``.  See ``repro_torch.serve.streaming``."""
+        from repro_torch.serve.streaming import run_streaming
+        return run_streaming(self, win_pkts, options=options)
 
     def run_looped(self, win_pkts, *, with_trace: bool = True,
                    options: EngineOptions | None = None) -> EngineResult:

@@ -154,8 +154,7 @@ def train_partitioned_dt(
 
     Each partition's fleet grows inside the span ``fit/level``; the JAX
     package's labelled ``fit_trees_total{trainer}`` and
-    ``fit_level_seconds{trainer}`` wait for the registry's labels
-    (ROADMAP A.10).  SIDs are assigned in partition-major level order
+    ``fit_level_seconds{trainer}`` are not recorded yet (ROADMAP A.10).  SIDs are assigned in partition-major level order
     (partition 0's subtree, then partition 1's subtrees in the order
     their parent leaves appear, ...) so both trainers number subtrees
     identically.

@@ -1,2 +1,2 @@
-"""Parameter declarations (port of the parameter half of
-``repro.distributed``)."""
+"""Parameter declarations and flow-batch sharding (port of the parameter
+half and the flow half of ``repro.distributed``)."""

@@ -6,7 +6,7 @@ Every model declares its parameters once as a tree (nested dicts) of
 From that one source the port derives materialised parameters
 (:func:`init_params`) and counts (:func:`param_count`,
 :func:`param_bytes`) without allocating anything.  The logical axes are
-kept so that the sharding rules (``resolve_spec``, ROADMAP A.7 and A.11)
+kept so that the sharding rules (``resolve_spec``, ROADMAP A.11)
 can be ported onto the same trees.
 """
 from __future__ import annotations

@@ -1,1 +1,2 @@
-"""Command-line launchers (port of ``repro.launch``): serving so far."""
+"""Command-line launchers and the flow mesh (port of ``repro.launch``):
+serving and ``make_flow_mesh`` so far."""

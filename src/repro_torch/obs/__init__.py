@@ -1,9 +1,10 @@
-"""Telemetry for the serving stack (port of ``repro.obs``): a
-:class:`MetricRegistry` of counters, gauges and fixed-bucket histograms
-with a process default (``obs.metrics``), and nestable :func:`span`
-markers that open ``torch.profiler.record_function`` ranges behind the
-``SPLIDT_OBS`` switch (``obs.trace``).  Labels, the exposition and the
-JSONL / Prometheus reporter are not ported yet (ROADMAP A.10).
+"""Telemetry for the engine and the serving stack (port of ``repro.obs``):
+a :class:`MetricRegistry` of labelled counters, gauges and fixed-bucket
+histograms with a process default (``obs.metrics``), and nestable
+:func:`span` markers that open ``torch.profiler.record_function`` ranges
+behind the ``SPLIDT_OBS`` switch (``obs.trace``).  The reporter
+(``MetricsReporter``) and the Prometheus / JSON exposition are not ported
+yet (ROADMAP A.10).
 """
 from .metrics import (
     Counter,

@@ -8,9 +8,12 @@ int or a numpy buffer; ``Histogram.record_many`` is one
 A snapshot is plain ``dict``/``list``/``float`` data, so two runs over
 the same ``PacketStream`` compare key by key.  Each server owns its
 registry; :func:`get_registry` / :func:`set_registry` hold the process
-default that the design-space search (``core.dse``) records into.
-Labels, the Prometheus/JSON exposition and snapshot deltas are not
-ported (ROADMAP A.10).
+default that the engine, the streaming scheduler, the autotuner and the
+design-space search (``core.dse``) record into.  A metric's identity is
+its name and its sorted labels; a snapshot keys a labelled metric as
+``name{k="v",...}``, as the JAX package's registry does.  The
+Prometheus/JSON exposition and snapshot deltas are not ported (ROADMAP
+A.10).
 
 >>> reg = MetricRegistry()
 >>> reg.counter("serve_packets_total", "packets ingested").inc(128)
@@ -20,10 +23,13 @@ ported (ROADMAP A.10).
 >>> h.record_many([0.0005, 0.05, 0.05, 2.0])
 >>> [int(c) for c in h.counts]
 [1, 0, 2, 0, 1]
+>>> reg.counter("engine_dispatches_total", labels={"backend": "cuda"}).inc()
+>>> sorted(reg.snapshot()["counters"])
+['engine_dispatches_total{backend="cuda"}', 'serve_packets_total']
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -38,6 +44,21 @@ __all__ = [
 ]
 
 
+LabelKey = Tuple[Tuple[str, str], ...]
+
+
+def _label_key(labels: Optional[Mapping[str, str]]) -> LabelKey:
+    if not labels:
+        return ()
+    return tuple(sorted((str(k), str(v)) for k, v in labels.items()))
+
+
+def _label_suffix(key: LabelKey) -> str:
+    if not key:
+        return ""
+    return "{%s}" % ",".join(f'{k}="{v}"' for k, v in key)
+
+
 def exp_edges(lo: float, hi: float, n: int) -> List[float]:
     """``n`` exponentially spaced bucket edges from ``lo`` to ``hi``."""
     if not (lo > 0 and hi > lo and n >= 2):
@@ -49,11 +70,13 @@ def exp_edges(lo: float, hi: float, n: int) -> List[float]:
 class Counter:
     """Monotonic int counter.  ``inc`` only; never decreases."""
 
-    __slots__ = ("name", "help", "value")
+    __slots__ = ("name", "help", "labels", "value")
 
-    def __init__(self, name: str, help: str = ""):
+    def __init__(self, name: str, help: str = "",
+                 labels: Optional[Mapping[str, str]] = None):
         self.name = name
         self.help = help
+        self.labels = _label_key(labels)
         self.value = 0
 
     def inc(self, by: int = 1) -> None:
@@ -65,11 +88,13 @@ class Counter:
 class Gauge:
     """A settable float — last write wins."""
 
-    __slots__ = ("name", "help", "value")
+    __slots__ = ("name", "help", "labels", "value")
 
-    def __init__(self, name: str, help: str = ""):
+    def __init__(self, name: str, help: str = "",
+                 labels: Optional[Mapping[str, str]] = None):
         self.name = name
         self.help = help
+        self.labels = _label_key(labels)
         self.value = 0.0
 
     def set(self, value: float) -> None:
@@ -86,16 +111,19 @@ class Histogram:
     searchsorted + one scatter-add.
     """
 
-    __slots__ = ("name", "help", "edges", "counts", "total", "sum")
+    __slots__ = ("name", "help", "labels", "edges", "counts", "total",
+                 "sum")
 
     def __init__(self, name: str, help: str = "",
-                 edges: Sequence[float] = ()):
+                 edges: Sequence[float] = (),
+                 labels: Optional[Mapping[str, str]] = None):
         e = np.asarray(list(edges), dtype=np.float64)
         if e.ndim != 1 or e.size < 1 or np.any(np.diff(e) <= 0):
             raise ValueError("edges must be a non-empty ascending 1-d "
                              "sequence")
         self.name = name
         self.help = help
+        self.labels = _label_key(labels)
         self.edges = e
         self.counts = np.zeros(e.size + 1, dtype=np.int64)
         self.total = 0
@@ -118,51 +146,60 @@ class Histogram:
 
 
 class MetricRegistry:
-    """Name → metric map with get-or-create accessors.
+    """(name, labels) -> metric map with get-or-create accessors.
 
-    Re-asking for a name returns the same live object, so call sites
-    never cache metric handles unless they are hot.  (The JAX package's
-    labelled metrics are not ported: the server uses none.)
+    Metric identity is ``(name, sorted(labels))``: re-asking for the same
+    identity returns the same live object, whatever the order the labels
+    come in, so call sites never cache metric handles unless they are hot.
     """
 
     def __init__(self):
-        self._counters: Dict[str, Counter] = {}
-        self._gauges: Dict[str, Gauge] = {}
-        self._histograms: Dict[str, Histogram] = {}
+        self._counters: Dict[Tuple[str, LabelKey], Counter] = {}
+        self._gauges: Dict[Tuple[str, LabelKey], Gauge] = {}
+        self._histograms: Dict[Tuple[str, LabelKey], Histogram] = {}
 
     # -- get-or-create -----------------------------------------------------
-    def counter(self, name: str, help: str = "") -> Counter:
-        m = self._counters.get(name)
+    def counter(self, name: str, help: str = "",
+                labels: Optional[Mapping[str, str]] = None) -> Counter:
+        key = (name, _label_key(labels))
+        m = self._counters.get(key)
         if m is None:
-            m = self._counters[name] = Counter(name, help)
+            m = self._counters[key] = Counter(name, help, labels)
         return m
 
-    def gauge(self, name: str, help: str = "") -> Gauge:
-        m = self._gauges.get(name)
+    def gauge(self, name: str, help: str = "",
+              labels: Optional[Mapping[str, str]] = None) -> Gauge:
+        key = (name, _label_key(labels))
+        m = self._gauges.get(key)
         if m is None:
-            m = self._gauges[name] = Gauge(name, help)
+            m = self._gauges[key] = Gauge(name, help, labels)
         return m
 
     def histogram(self, name: str, help: str = "",
-                  edges: Sequence[float] = ()) -> Histogram:
-        m = self._histograms.get(name)
+                  edges: Sequence[float] = (),
+                  labels: Optional[Mapping[str, str]] = None) -> Histogram:
+        key = (name, _label_key(labels))
+        m = self._histograms.get(key)
         if m is None:
             if not edges:
                 raise ValueError(
                     f"first use of histogram {name!r} must pass edges")
-            m = self._histograms[name] = Histogram(name, help, edges)
+            m = self._histograms[key] = Histogram(name, help, edges, labels)
         return m
 
     # -- views -------------------------------------------------------------
     def snapshot(self) -> Dict[str, dict]:
-        """Plain-data copy of every metric (safe to mutate / serialise)."""
-        counters = {name: {"value": c.value, "help": c.help}
-                    for name, c in sorted(self._counters.items())}
-        gauges = {name: {"value": g.value, "help": g.help}
-                  for name, g in sorted(self._gauges.items())}
+        """Plain-data copy of every metric (safe to mutate / serialise),
+        keyed ``name{k="v",...}`` in (name, labels) order."""
+        counters = {name + _label_suffix(lk): {"value": c.value,
+                                               "help": c.help}
+                    for (name, lk), c in sorted(self._counters.items())}
+        gauges = {name + _label_suffix(lk): {"value": g.value,
+                                             "help": g.help}
+                  for (name, lk), g in sorted(self._gauges.items())}
         histograms = {}
-        for name, h in sorted(self._histograms.items()):
-            histograms[name] = {
+        for (name, lk), h in sorted(self._histograms.items()):
+            histograms[name + _label_suffix(lk)] = {
                 "edges": [float(e) for e in h.edges],
                 "counts": [int(c) for c in h.counts],
                 "total": h.total,

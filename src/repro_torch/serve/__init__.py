@@ -1,7 +1,7 @@
-"""Serving surface (port of ``repro.serve``): live per-packet inference
-behind a resident flow table, and LM continuous batching
-(``ContinuousBatcher``, RWKV6).  Batch streaming (``run_streaming``,
-``stream_batches``) is not ported yet (ROADMAP A.7).
+"""Serving surface (port of ``repro.serve``): batch streaming
+(``run_streaming``, ``stream_batches``: micro-batches on CUDA streams),
+live per-packet inference behind a resident flow table, and LM continuous
+batching (``ContinuousBatcher``, RWKV6).
 """
 from repro_torch.core.inference import Engine, EngineOptions, EngineResult
 from repro_torch.serve.batching import ContinuousBatcher, EngineStats, Request
@@ -11,6 +11,11 @@ from repro_torch.serve.flowtable import (
     ServerStats,
     StreamVerdict,
     StreamVerdicts,
+)
+from repro_torch.serve.streaming import (
+    microbatches,
+    run_streaming,
+    stream_batches,
 )
 
 __all__ = [
@@ -25,4 +30,7 @@ __all__ = [
     "ServerStats",
     "StreamVerdict",
     "StreamVerdicts",
+    "microbatches",
+    "run_streaming",
+    "stream_batches",
 ]

@@ -42,11 +42,16 @@ Execution knobs come from :class:`repro_torch.core.inference.EngineOptions`:
 ``fused`` runs the plain PyTorch versions, ``cuda`` the kernels (the
 tick kernel in the fused engine; the fold kernel and the range-match
 kernel behind the SID dispatch in the legacy engine; the hop kernel in
-the spill walk, ``Engine.run``); ``block_b`` is the legacy engine's SID
-dispatch block size.  The tick kernel takes up to
-``kernels.tick_step.K_MAX`` (= ``N_FEATURES``, 41) slots a subtree, every
-k the JAX server serves; a server on the card with a wider model fails at
-construction.  Every route gives the
+the spill walk, ``Engine.run``); ``impl="auto"`` / ``"tuned"`` (or
+``options.plan``) resolve a walk-backend plan for the table's shape
+through ``repro_torch.tuning`` (no probe windows exist, so ``tuned`` is
+the cost model); ``block_b`` is the legacy engine's SID dispatch block
+size.  ``tick_engine="auto"``, the default, picks the tick engine by the
+tick-shape estimate (``tuning.choose_tick_engine``).  The tick kernel
+takes up to ``kernels.tick_step.K_MAX`` (= ``N_FEATURES``, 41) slots a
+subtree, every k the JAX server serves; a server on the card whose tick
+engine resolves to ``fused`` with a wider model fails at construction.
+Every route gives the
 verdicts of ``Engine.run`` on the offline windows, bit for bit: the flow
 table can only change *when* a verdict is computed, never its value.
 """
@@ -67,7 +72,7 @@ from repro_torch.kernels.feature_window import feature_update_at
 from repro_torch.obs import MetricRegistry, exp_edges, span
 
 #: Tick engines ``FlowTableServer`` accepts.
-TICK_ENGINES = ("fused", "legacy")
+TICK_ENGINES = ("auto", "fused", "legacy")
 
 #: Histogram bucket edges.  TTD is measured in STREAM time (the packet
 #: arrival clock of the replayed ``PacketStream``), so two replays of
@@ -75,8 +80,6 @@ TICK_ENGINES = ("fused", "legacy")
 TTD_EDGES = tuple(exp_edges(1e-3, 1e4, 15))
 RECIRC_EDGES = (0.5, 1.5, 2.5, 4.5, 8.5, 16.5, 32.5)
 WINDOW_EDGES = (1.5, 2.5, 3.5, 4.5, 6.5, 8.5, 12.5, 16.5)
-
-_NOT_PORTED = "needs repro.tuning, which is not ported yet (ROADMAP A.9)"
 
 
 # ---------------------------------------------------------------------------
@@ -382,13 +385,26 @@ def _hop_rank(acc, seen, slots, sid_rows, p_rows, rec_rows, dev, *,
     return labels, done, sid2, rec2, exit_p
 
 
-def _resolve_exec(engine: Engine, opt: EngineOptions) -> tuple[bool, int]:
-    """EngineOptions -> (run the kernels?, SID-dispatch block size)."""
-    impl = opt.impl or ("cuda" if engine.device.type == "cuda" else "fused")
+def _resolve_exec(engine: Engine, opt: EngineOptions, capacity: int):
+    """EngineOptions -> (run the kernels?, SID-dispatch block size, plan).
+
+    ``auto``/``tuned`` resolve a walk-backend plan for the table's shape
+    (``capacity`` slots, one packet a slot a rank) through
+    ``repro_torch.tuning``; ``tuned`` has no probe windows, so it is the
+    cost model.  Only the plan's backend applies: a hop's batch is
+    already the flows at a window boundary, so compaction is inert here.
+    """
+    from repro_torch.tuning import ShapeInfo, resolve_route
+    shape = ShapeInfo.from_engine(engine, None, B=capacity, W=1)
+    impl, _, _, plan = resolve_route(engine, opt.replace(compact=False),
+                                     shape=shape, backends=("fused", "cuda"))
+    if impl not in ("fused", "cuda"):
+        raise ValueError("flow-table serving requires a walk backend "
+                         f"(fused or cuda); got {impl!r}")
     if impl == "cuda" and engine.device.type != "cuda":
         raise ValueError("impl='cuda' needs an engine on a CUDA device; "
                          f"this one is on {engine.device}")
-    return impl == "cuda", opt.block_b or BLOCK_B
+    return impl == "cuda", opt.block_b or BLOCK_B, plan
 
 
 # ---------------------------------------------------------------------------
@@ -405,10 +421,11 @@ class FlowTableServer:
     than ``timeout`` seconds of stream time are evicted at tick
     boundaries the same way.
 
-    ``tick_engine`` is ``"fused"`` (default: one launch stream per tick,
-    ``kernels.tick_step``) or ``"legacy"`` (one call per rank and per
-    drain round).  ``options.impl`` picks the kernels or the plain
-    versions (see the module docstring).  All choices give identical
+    ``tick_engine`` is ``"fused"`` (one launch stream per tick,
+    ``kernels.tick_step``), ``"legacy"`` (one call per rank and per drain
+    round) or ``"auto"`` (default: the tick-shape cost estimate picks,
+    ``tuning.choose_tick_engine``).  ``options.impl`` picks the kernels or
+    the plain versions (see the module docstring).  All choices give identical
     verdicts and stats, except the dispatch count, which is the engines'
     whole difference.
 
@@ -421,10 +438,8 @@ class FlowTableServer:
     def __init__(self, engine: Engine, *, n_buckets: int = 64,
                  bucket_size: int = 8, timeout: float | None = None,
                  options: EngineOptions | None = None,
-                 rank_floor: int = 64, tick_engine: str = "fused",
+                 rank_floor: int = 64, tick_engine: str = "auto",
                  registry: MetricRegistry | None = None):
-        if tick_engine == "auto":
-            raise ValueError(f"tick_engine='auto' {_NOT_PORTED}")
         if tick_engine not in TICK_ENGINES:
             raise ValueError(f"unknown tick_engine {tick_engine!r}; "
                              f"options {TICK_ENGINES}")
@@ -436,7 +451,16 @@ class FlowTableServer:
         self.S = engine.tables.n_subtrees
         self._dev = engine.tables.dev
         self._rank_floor = int(rank_floor)
-        self._cuda, self._block_b = _resolve_exec(engine, self.options)
+        self._cuda, self._block_b, self._plan = _resolve_exec(
+            engine, self.options, self.table.capacity)
+        if tick_engine == "auto":
+            from repro_torch.tuning import ShapeInfo, choose_tick_engine
+            from repro_torch.tuning.costmodel import platform_of
+            shape = ShapeInfo.from_engine(engine, None,
+                                          B=self.table.capacity, W=1)
+            tick_engine = choose_tick_engine(
+                shape, backend="cuda" if self._cuda else "fused",
+                platform=platform_of(engine.device))
         k = self._dev.slot_op.shape[1]
         if self._cuda and tick_engine == "fused" and k > _tick.K_MAX:
             raise ValueError(

@@ -429,8 +429,9 @@ def _small_engine(k: int = 3):
 
 
 def test_walk_buffer_is_the_fetch_layout():
-    """labels | recircs | exit_partition | the bit-cast (P, B, k) trace,
-    each hop writing its verdicts and registers in place."""
+    """labels | recircs | exit_partition | the bit-cast (P, B, k) trace
+    | the per-hop survivor counts, each hop writing its verdicts and
+    registers in place."""
     eng, wp = _small_engine()
     x = torch.from_numpy(wp)
     B, P = x.shape[0], eng.tables.n_partitions
@@ -451,6 +452,17 @@ def test_walk_buffer_is_the_fetch_layout():
                                n_subtrees=eng.tables.n_subtrees,
                                n_partitions=P)
     assert torch.equal(short, buf[:3 * B])
+    # count_survivors appends the flows still walking as each hop starts
+    counted = inf.partition_walk(x, eng.tables.dev,
+                                 n_subtrees=eng.tables.n_subtrees,
+                                 n_partitions=P, with_trace=True,
+                                 count_survivors=True)
+    assert counted.shape == (3 * B + P * B * k + P,)
+    assert torch.equal(counted[:-P], buf)
+    e = res.exit_partition
+    assert counted[-P:].tolist() == [
+        int(np.count_nonzero((e < 0) | (e >= p))) for p in range(P)]
+    assert counted[-P:][0] == B
 
 
 def test_results_own_their_arrays():

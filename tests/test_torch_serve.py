@@ -839,14 +839,13 @@ def test_streamed_verdicts_equal_engine_run(serve_setup):
 
 def test_server_knobs(serve_setup):
     _, eng, _, _ = serve_setup
-    with pytest.raises(ValueError, match="A.9"):
-        FlowTableServer(eng, tick_engine="auto")
+    # "auto", the default, resolves through the tick-shape estimate
+    assert FlowTableServer(eng, tick_engine="auto").tick_engine == "fused"
     with pytest.raises(ValueError, match="unknown tick_engine"):
         FlowTableServer(eng, tick_engine="warp")
-    with pytest.raises(ValueError, match="A.9"):
-        EngineOptions(impl="auto")
-    with pytest.raises(ValueError, match="A.9"):
-        EngineOptions(impl="tuned")
+    for impl in ("auto", "tuned"):
+        srv = FlowTableServer(eng, options=EngineOptions(impl=impl))
+        assert srv._plan.backend == "fused" and not srv._cuda
     with pytest.raises(ValueError, match="CUDA device"):
         FlowTableServer(eng, options=EngineOptions(impl="cuda"))
     srv = FlowTableServer(eng)
