@@ -100,7 +100,10 @@ exits nonzero; nothing is caught and passed over):
    serving kernel (no flow spills in this stream, so no batch walk); one
    verdict per flow, each equal to ``Engine.run`` on the rebuilt windows
    and to ``pdt.predict``; packets/s, verdicts/s, per-tick host latency
-   and each host span's share of serving time;
+   and each host span's share of serving time.  Then the server's registry
+   through ``MetricsReporter(path, http_port=0)``: one ``dump_once()``
+   line parses back to the snapshot, and an HTTP scrape of ``/metrics``
+   on 127.0.0.1 equals ``to_prometheus()``;
 6. serve_check -- both fold kernels against their plain versions at the
    serving rank width and at a width that is no multiple of a block; the
    tick kernel against its plain version (the rank loop, on a clone of
@@ -151,6 +154,30 @@ exits nonzero; nothing is caught and passed over):
    kernel nodes of a captured graph); its registers, spills and shared
    memory (nvcc's ``-Xptxas -v`` log, the launch's shared memory and CTAs
    per SM);
+10b. lm_dense -- the dense transformer family at full width:
+   ``tinyllama-1.1b`` (22 layers, D = 2048, 32 query heads and 4 KV heads
+   of 64, d_ff 5632, vocab 32000, 1.1 B random f32 parameters made on the
+   card from a seeded generator) behind ``ContinuousBatcher(slots=8,
+   max_len=2048)`` with phase ``lm``'s traffic (16 requests of 300-1100
+   prompt tokens from the same seed, 16 greedy tokens each).  All
+   complete, occupancy never exceeds 8, each request's tokens equal an
+   isolated batch-1 prefill and decode (``==``); a teacher-forced
+   prefill + decode equals the full forward within 0.05 x max |logit| at
+   two layers (printed at 22 and with the blockwise prefill); the
+   full-width ``tinyllama-1.1b``, ``granite-3-2b`` (tied, 8 KV heads) and
+   ``paligemma-3b`` (one KV head of 256, gelu, 256 image tokens of prefix)
+   cut to two layers give prefill logits into a 2,048-position cache (the
+   blockwise path) on the card within 0.05 x max |logit| of the same
+   parameters on the CPU with the products in f32 (with bf16 products the
+   ratio is printed beside the CPU's own bf16-against-f32 ratio: at these
+   widths the random-init attention is near one-hot, and one bf16 ulp in
+   q or k moves whole positions); ``_attend_blockwise`` equals
+   ``attend``'s naive path at the prefill shape (Tq = 1024, Tk = 2048, 32/4
+   heads of 64, causal, kv_len 1024): f32 inputs within 2e-5, bf16 inputs
+   within 2 bf16 ulps of the largest output, both timed; prefill and decode
+   tokens/s, tick p50/p99, peak memory, one traced decode tick and one
+   traced prefill.  No hand-written kernel: JAX runs this family on XLA
+   products alone;
 11. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -213,6 +240,13 @@ LM_SEED = 13
 LOGIT_TOL = 0.05           # x max |logit|: the bound of tests/test_models.py
 LOGIT_DEPTH = 2            # layers of the logits gate (the reduced depth)
 SCAN_O_TOL, SCAN_S_TOL = 2e-4, 3e-4   # tests/test_kernels.py
+LM_DENSE_ARCH = "tinyllama-1.1b"     # phase lm_dense: the dense family
+LM_DENSE_CUTS = ("tinyllama-1.1b", "granite-3-2b", "paligemma-3b")
+LM_CPU_PROMPT = 128        # text tokens of the card-against-CPU logits gate
+LM_FORCED = (48, 40)       # teacher-forced tokens, of which prefilled
+ATTN_PREFILL = (1024, 2048, 32, 4, 64)   # Tq, Tk, query heads, KV heads, d
+ATTN_F32_ATOL = 2e-5       # tests/test_perf_layouts.py, f32 inputs
+ATTN_BF16_ULPS = 2         # bf16 inputs: 2 bf16 ulps of max |naive|
 SCAN_KERNELS = {"chunked": 3, "step": 1}  # chunk_scan's device kernels a
 #                           call by design: C >= 2 (prep, state pass,
 #                           output) and C == 1 (one step)
@@ -567,6 +601,44 @@ def kernel_resources(out_dir: pathlib.Path, stem: str) -> dict:
         if m and name:
             res[name]["registers"] = int(m.group(1))
     return res
+
+
+def reporter_check(registry) -> dict:
+    """``MetricsReporter(path, http_port=0)`` over ``registry``: one
+    ``dump_once()`` line must parse back to the registry's snapshot and an
+    HTTP scrape of ``/metrics`` on 127.0.0.1 must equal
+    ``to_prometheus()``, byte for byte."""
+    import urllib.request
+    from repro_torch.obs import MetricsReporter
+    path = ROOT / "build" / "metrics_smoke.jsonl"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    rep = MetricsReporter(str(path), registry=registry, http_port=0)
+    try:
+        rep.dump_once()
+        port = rep.http_port
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics",
+                                    timeout=30) as resp:
+            body = resp.read().decode()
+        scrape_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        rep.close()
+    check(rep.http_port is None, "the reporter's endpoint is closed")
+    lines = path.read_text().splitlines()
+    first = json.loads(lines[0])
+    check(first.pop("seq") == 0 and len(lines) == 2,
+          "one dumped line, then close()'s final line")
+    check(json.dumps(first, sort_keys=True) == registry.to_json(),
+          "the JSONL line parses back to the registry's snapshot")
+    check(body == registry.to_prometheus(),
+          "the HTTP scrape equals to_prometheus()")
+    snap = registry.snapshot()
+    return {"jsonl_bytes": len(lines[0]), "scrape_bytes": len(body),
+            "scrape_ms": scrape_ms,
+            "metrics": {kind: len(v) for kind, v in snap.items()},
+            "jsonl_equals_snapshot": True,
+            "scrape_equals_to_prometheus": True}
 
 
 def first_layers(model, n: int):
@@ -924,6 +996,326 @@ def lm_phases(card, smi: str, out_dir: pathlib.Path) -> dict:
             "large_bound_f32_ms": big["bound_f32_ms"],
             "resources": resources,
             "tolerance": f"o {SCAN_O_TOL} x max(|o|,1), state {SCAN_S_TOL}"}
+
+
+def retree(model, leaf) -> dict:
+    """A transformer's parameter tree, nested by name, with ``leaf(name,
+    tensor)`` at each parameter."""
+    tree: dict = {}
+    for name, p in model.named_parameters():
+        node = tree
+        *path, last = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf(name, p.data)
+    return tree
+
+
+def cut_transformer(model, n: int):
+    """The config and model of a transformer's first ``n`` layers, full
+    width, sharing its parameters."""
+    import dataclasses
+    from repro_torch.models import transformer
+    cfg = dataclasses.replace(model.cfg, n_layers=n)
+    return cfg, transformer.Transformer(cfg, retree(
+        model, lambda name, t: t[:n] if name.startswith("layers.") else t))
+
+
+class products_in:
+    """Run the LM layers' products in ``dtype`` (the compute dtype,
+    ``models.layers.COMPUTE_DTYPE``, bf16 by default) inside the block."""
+
+    def __init__(self, dtype):
+        self.dtype = dtype
+
+    def __enter__(self):
+        from repro_torch.models import layers, transformer
+        self.prev = layers.COMPUTE_DTYPE
+        layers.COMPUTE_DTYPE = transformer.COMPUTE_DTYPE = self.dtype
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers, transformer
+        layers.COMPUTE_DTYPE = transformer.COMPUTE_DTYPE = self.prev
+        return False
+
+
+def on_cpu(model):
+    """A copy of a transformer's parameters on the CPU, same config."""
+    from repro_torch.models import transformer
+    return transformer.Transformer(model.cfg, retree(
+        model, lambda name, t: t.cpu()))
+
+
+def lm_dense_phase(card, smi: str) -> None:
+    """Phase ``lm_dense``: the dense transformer family at full width behind
+    the continuous batcher, the card against the CPU at two layers, and
+    the blockwise attention against the naive one."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import pspec
+    from repro_torch.models import layers as L
+    from repro_torch.models import model_zoo, transformer
+    from repro_torch.serve import ContinuousBatcher, Request
+    from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = get_arch(LM_DENSE_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab) == (22, 2048, 32, 4, 64, 5632,
+                                                  32000),
+          f"{LM_DENSE_ARCH} at its published widths")
+    zoo = model_zoo.get_model(cfg)
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9   # earlier phases' data
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=card).manual_seed(0)
+    model = zoo.build(cfg, pspec.init_params(zoo.param_defs(cfg), gen, card))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_count(), "every declared parameter is made")
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg)
+    with torch.no_grad():          # cuBLAS handles, the bf16 weight copies
+        warm = torch.from_numpy(np.asarray([prompts[-1][:256]], np.int32))
+        prefill(model, {"tokens": warm.to(card)},
+                zoo.init_cache(cfg, 1, LM_MAX_LEN, card))
+    torch.cuda.synchronize()
+
+    # -- the batcher: 16 requests, 8 slots ----------------------------------
+    eng = ContinuousBatcher(cfg, model, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    step_s = {"prefill": [], "decode": []}
+
+    def timed(name, fn):
+        def run(*a):
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            step_s[name].append(time.perf_counter() - t)
+            return out
+        return run
+
+    eng.prefill = timed("prefill", eng.prefill)
+    eng.decode = timed("decode", eng.decode)
+    reqs = [Request(rid=i, prompt=p, max_new=LM_MAX_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tick_s = []
+    t0 = time.perf_counter()
+    while eng.queue or any(eng.live):
+        t = time.perf_counter()
+        eng.tick()
+        tick_s.append(time.perf_counter() - t)
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = eng.stats
+    check(st.completed == LM_REQUESTS and all(
+        r.done and len(r.out) == LM_MAX_NEW for r in reqs),
+        f"all {LM_REQUESTS} requests complete with {LM_MAX_NEW} tokens")
+    check(max(st.slot_occupancy) <= LM_SLOTS, "occupancy never exceeds 8")
+    check(all(0 <= t < cfg.vocab for r in reqs for t in r.out),
+          "tokens in the vocabulary")
+    n_pre, n_dec = len(step_s["prefill"]), len(step_s["decode"])
+    check(n_pre == st.admitted == LM_REQUESTS and n_dec == st.decode_tokens,
+          "one prefill per request, one decode step per decoded token")
+    for r in reqs:                 # slot isolation: each request alone
+        cache = zoo.init_cache(cfg, 1, LM_MAX_LEN, card)
+        toks = torch.tensor([r.prompt], dtype=torch.int32, device=card)
+        lg, cache = prefill(model, {"tokens": toks}, cache)
+        out = [int(torch.argmax(lg[0, -1]))]
+        while len(out) < LM_MAX_NEW:
+            nxt, cache = decode(model, torch.tensor(
+                [[out[-1]]], dtype=torch.int32, device=card), cache)
+            out.append(int(nxt[0, 0]))
+        check(out == r.out, f"request {r.rid}: batcher tokens == isolated")
+
+    # -- teacher-forced prefill + decode against the full forward -----------
+    # tests/test_models.py's case at full width: prefill 40 of 48 tokens
+    # into a cache of 48 + 4 positions (the naive path throughout, as in
+    # the test), then decode the rest one token at a time, against the
+    # full forward over all 48.  Gated on the 2-layer cut (ROADMAP C: at
+    # full depth one ulp per layer can move random-weight logits past any
+    # bound); printed at 22 layers, and with the batcher's 2,048-position
+    # cache, where the prefill takes the blockwise path.
+    ratio = lambda a, b: float((a.float() - b.float()).abs().max()
+                               / b.float().abs().max())
+    T, k = LM_FORCED
+    forced = torch.tensor([prompts[0][:T]], dtype=torch.int32, device=card)
+
+    def forced_ratios(m, c, max_len):
+        with torch.no_grad():
+            full, _, _ = m({"tokens": forced}, mode="prefill")
+            cache = zoo.init_cache(c, 1, max_len, card)
+            lg, cache, _ = m({"tokens": forced[:, :k]}, mode="prefill",
+                             cache=cache)
+            outs = [lg[:, -1]]
+            for t in range(k, T - 1):
+                lg, cache, _ = m({"tokens": forced[:, t:t + 1]},
+                                 mode="decode", cache=cache)
+                outs.append(lg[:, -1])
+        return [ratio(o, full[:, k - 1 + i]) for i, o in enumerate(outs)]
+
+    cut_cfg, cut = cut_transformer(model, LOGIT_DEPTH)
+    forced_cut = forced_ratios(cut, cut_cfg, T + 4)
+    check(max(forced_cut) <= LOGIT_TOL,
+          f"cached prefill + decode at {LOGIT_DEPTH} layers within "
+          f"{LOGIT_TOL} x max |logit| of the full forward, got {forced_cut}")
+    forced_out = {"gated_depth": LOGIT_DEPTH, "gated_max_ratio":
+                  max(forced_cut),
+                  "full_depth_max_ratio": max(forced_ratios(
+                      model, cfg, T + 4)),
+                  "blockwise_prefill_max_ratio": max(forced_ratios(
+                      cut, cut_cfg, LM_MAX_LEN)),
+                  "full_depth_blockwise_prefill_max_ratio": max(
+                      forced_ratios(model, cfg, LM_MAX_LEN))}
+    del cut
+
+    # -- the card against the CPU, each family cut to 2 layers --------------
+    cuts = {}
+    for arch in LM_DENSE_CUTS:
+        t0 = time.perf_counter()
+        if arch == LM_DENSE_ARCH:
+            ccfg, cmodel = cut_transformer(model, LOGIT_DEPTH)
+        else:
+            ccfg = dataclasses.replace(get_arch(arch), n_layers=LOGIT_DEPTH)
+            czoo = model_zoo.get_model(ccfg)
+            g = torch.Generator(device=card).manual_seed(0)
+            cmodel = czoo.build(ccfg, pspec.init_params(
+                czoo.param_defs(ccfg), g, card))
+        full_w = get_arch(arch)
+        check((ccfg.d_model, ccfg.n_heads, ccfg.n_kv_heads, ccfg.head_dim,
+               ccfg.d_ff, ccfg.vocab) == (full_w.d_model, full_w.n_heads,
+                                          full_w.n_kv_heads,
+                                          full_w.head_dim, full_w.d_ff,
+                                          full_w.vocab),
+              f"{arch} cut to {LOGIT_DEPTH} layers at full width")
+        cpu_model = on_cpu(cmodel)
+        crng = np.random.default_rng(LM_SEED)
+        batch = {"tokens": torch.from_numpy(crng.integers(
+            0, ccfg.vocab, (1, LM_CPU_PROMPT)).astype(np.int32))}
+        if ccfg.n_image_tokens:
+            batch["img_embeds"] = torch.from_numpy(crng.normal(size=(
+                1, ccfg.n_image_tokens, ccfg.d_model)).astype(np.float32))
+
+        def prefill_logits(m, dev, dtype):
+            with products_in(dtype), torch.no_grad():
+                lg, _, _ = m({n: t.to(dev) for n, t in batch.items()},
+                             mode="prefill", cache=transformer.init_cache(
+                                 ccfg, 1, LM_MAX_LEN, dev))
+            return lg.cpu().float()
+
+        got = prefill_logits(cmodel, card, torch.float32)
+        want = prefill_logits(cpu_model, "cpu", torch.float32)
+        check(bool(torch.isfinite(got).all()) and got.shape == (
+            1, LM_CPU_PROMPT + ccfg.n_image_tokens, ccfg.vocab),
+            f"{arch}: finite logits of the right shape")
+        r = ratio(got, want)
+        check(r <= LOGIT_TOL, f"{arch} at {LOGIT_DEPTH} layers, f32 products: "
+              f"card logits within {LOGIT_TOL} x max |logit| of the CPU's, "
+              f"got {r}")
+        got16 = prefill_logits(cmodel, card, torch.bfloat16)
+        want16 = prefill_logits(cpu_model, "cpu", torch.bfloat16)
+        agree = lambda a, b: float((a.argmax(-1) == b.argmax(-1)).float()
+                                   .mean())
+        cuts[arch] = {"ratio_f32": r, "argmax_agreement_f32": agree(got,
+                                                                    want),
+                      "ratio_bf16": ratio(got16, want16),
+                      "argmax_agreement_bf16": agree(got16, want16),
+                      # what bf16 rounding alone moves: the CPU's bf16
+                      # logits against its own f32-product logits
+                      "bf16_rounding_floor": ratio(want16, want),
+                      "positions": got.shape[1],
+                      "n_kv_heads": ccfg.n_kv_heads,
+                      "d_head": ccfg.head_dim, "act": ccfg.act,
+                      "tied": ccfg.tie_embeddings,
+                      "image_tokens": ccfg.n_image_tokens,
+                      "s": time.perf_counter() - t0}
+        del cmodel, cpu_model
+
+    # -- blockwise against naive at the prefill shape -----------------------
+    Tq, Tk, Hq, Hkv, Dh = ATTN_PREFILL
+    g = torch.Generator(device=card).manual_seed(3)
+    qkv = [torch.randn(1, t, h, Dh, generator=g, device=card)
+           for t, h in ((Tq, Hq), (Tk, Hkv), (Tk, Hkv))]
+    mask = dict(causal=True, q_offset=0, kv_len=Tq, prefix_len=0, window=0)
+    prev_min = L._BLOCKWISE_MIN
+
+    def naive(q, kk, v):
+        L.set_blockwise_min(1 << 62)
+        try:
+            return L.attend(q, kk, v, **mask)
+        finally:
+            L.set_blockwise_min(prev_min)
+
+    def blockwise(q, kk, v):
+        return L._attend_blockwise(q, kk, v, scale=Dh ** -0.5, **mask)
+
+    attn = {}
+    with torch.no_grad():
+        for dt in (torch.float32, torch.bfloat16):
+            q, kk, v = (t.to(dt) for t in qkv)
+            a, b = blockwise(q, kk, v).float(), naive(q, kk, v).float()
+            err = float((a - b).abs().max())
+            scale = float(b.abs().max())
+            tol = (ATTN_F32_ATOL if dt == torch.float32
+                   else ATTN_BF16_ULPS * 2.0 ** -8 * scale)
+            check(err <= tol, f"blockwise == naive attention ({dt}): "
+                  f"{err} > {tol}")
+            attn[str(dt).removeprefix("torch.")] = {
+                "max_abs_err": err, "tolerance": tol, "out_scale": scale,
+                "blockwise_ms": cuda_ms(lambda: blockwise(q, kk, v)),
+                "naive_ms": cuda_ms(lambda: naive(q, kk, v))}
+
+    # -- traces: one decode tick of 8 live slots, one prefill of 1,024 ------
+    eng2 = ContinuousBatcher(cfg, model, slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    for i in range(LM_SLOTS):
+        eng2.submit(Request(rid=i, prompt=prompts[i][:64], max_new=64))
+    eng2.tick()                                   # admits all 8
+    decode_tick = profile_run(eng2.tick)          # one warm, one traced
+    ptoks = torch.from_numpy(rng.integers(0, cfg.vocab, (1, 1024)).astype(
+        np.int32)).to(card)
+    prefill_trace = profile_run(lambda: prefill(
+        model, {"tokens": ptoks}, zoo.init_cache(cfg, 1, LM_MAX_LEN, card)))
+    cache_bytes = sum(t.numel() * t.element_size() for t in (
+        eng.caches[0]["layers"]["k"], eng.caches[0]["layers"]["v"]))
+    pre_tok = int(sum(lens))
+    emit("lm_dense", card=smi, arch=LM_DENSE_ARCH, n_params=n_params,
+         init_s=init_s, slots=LM_SLOTS, max_len=LM_MAX_LEN,
+         kv_cache_bytes_per_slot=cache_bytes, requests=LM_REQUESTS,
+         max_new=LM_MAX_NEW, prompt_tokens=pre_tok,
+         prompt_len_min=int(lens.min()), prompt_len_max=int(lens.max()),
+         ticks=st.ticks, prefills=n_pre, decode_steps=n_dec,
+         wall_s=wall_s, prefill_s=sum(step_s["prefill"]),
+         decode_s=sum(step_s["decode"]),
+         prefill_tokens_per_s=pre_tok / sum(step_s["prefill"]),
+         decode_tokens_per_s=n_dec / sum(step_s["decode"]),
+         prefill_ms_p50=float(np.percentile(step_s["prefill"], 50)) * 1e3,
+         decode_step_ms_p50=float(np.percentile(step_s["decode"], 50)) * 1e3,
+         tick_ms_p50=float(np.percentile(tick_s, 50)) * 1e3,
+         tick_ms_p99=float(np.percentile(tick_s, 99)) * 1e3,
+         tick_ms_max=max(tick_s) * 1e3, peak_memory_allocated_gb=peak_gb,
+         held_before_phase_gb=held_gb,
+         peak_above_held_gb=peak_gb - held_gb,
+         max_occupancy=max(st.slot_occupancy),
+         tokens_equal_isolated_decode=True,
+         forced=dict(tokens=T, prefilled=k, **forced_out),
+         logits_depth=LOGIT_DEPTH, card_vs_cpu=cuts,
+         attention=dict(shape=f"Tq={Tq},Tk={Tk},Hq={Hq},Hkv={Hkv},d={Dh},"
+                              f"causal,kv_len={Tq}", **attn),
+         decode_tick=dict(live_slots=LM_SLOTS, **decode_tick),
+         prefill_1024=prefill_trace,
+         phase_s=time.perf_counter() - t_phase)
 
 
 def compact_phase(card) -> tuple[dict, dict]:
@@ -2452,7 +2844,8 @@ def main() -> int:
          serve_recirc_overhead=srv.registry.gauge(
              "serve_recirc_overhead").value,
          n_unterminated=v.n_unterminated,
-         verdicts_equal_engine_run_and_predict=True)
+         verdicts_equal_engine_run_and_predict=True,
+         reporter=reporter_check(srv.registry))
 
     # -- 6. fold kernels and the cuda server vs their plain versions --------
     serve_checks = {}
@@ -2769,6 +3162,7 @@ def main() -> int:
                                 packets=prof_pkts, **tick_prof))
 
     lm = lm_phases(card, smi, out_dir)
+    lm_dense_phase(card, smi)
 
     # -- 8. summary -----------------------------------------------------------
     print(json.dumps({"kernels": [

@@ -1,24 +1,26 @@
 """Config registry: ``--arch <id>`` -> ArchConfig (port of
 ``repro.configs``).
 
-The port serves ``rwkv6-1.6b`` only; the JAX package's other
-architectures are named here so that asking for one says which ROADMAP
-item ports it.
+The port serves ``rwkv6-1.6b`` and the dense and VLM transformers; the
+JAX package's other architectures are named here so that asking for one
+says which ROADMAP item ports it.
 """
 from __future__ import annotations
 
-from repro_torch.configs import rwkv6_1_6b
+from repro_torch.configs import (
+    granite_3_2b, minitron_8b, paligemma_3b, rwkv6_1_6b, stablelm_3b,
+    tinyllama_1_1b,
+)
 from repro_torch.configs.base import ArchConfig, SHAPES, ShapeCfg, shape_supported
 
-ARCHS: dict[str, ArchConfig] = {rwkv6_1_6b.CONFIG.arch_id: rwkv6_1_6b.CONFIG}
+ARCHS: dict[str, ArchConfig] = {
+    m.CONFIG.arch_id: m.CONFIG
+    for m in (tinyllama_1_1b, minitron_8b, granite_3_2b, stablelm_3b,
+              rwkv6_1_6b, paligemma_3b)
+}
 
 #: the JAX package's other architectures, not ported yet
 NOT_PORTED: dict[str, str] = {
-    "tinyllama-1.1b": "ROADMAP A.11 (transformer family)",
-    "minitron-8b": "ROADMAP A.11 (transformer family)",
-    "granite-3-2b": "ROADMAP A.11 (transformer family)",
-    "stablelm-3b": "ROADMAP A.11 (transformer family)",
-    "paligemma-3b": "ROADMAP A.11 (transformer family, VLM prefix)",
     "qwen2-moe-a2.7b": "ROADMAP A.11 (MoE family)",
     "deepseek-v2-236b": "ROADMAP A.11 (MoE and MLA families)",
     "whisper-medium": "ROADMAP A.11 (Whisper family)",

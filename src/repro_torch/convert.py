@@ -20,7 +20,10 @@ An RWKV6 parameter tree (``repro.models.rwkv.param_defs`` materialised:
 nested dicts of numpy arrays, stacked over the layers) becomes the
 port's model (:func:`rwkv_params_from_arrays`), and a JAX decode cache
 becomes the port's cache (:func:`rwkv_cache_from_arrays`), so the port
-can decode from a state that JAX prefilled.
+can decode from a state that JAX prefilled.  The dense and VLM
+transformer's tree and KV cache cross the same way
+(:func:`transformer_params_from_arrays`,
+:func:`transformer_cache_from_arrays`).
 
 This module takes plain numpy, so it imports nothing of the JAX package.
 """
@@ -115,12 +118,40 @@ def tick_state_from_arrays(
 
 
 def _tensor(a: np.ndarray, dev: torch.device) -> torch.Tensor:
-    """A numpy array on ``dev``; a bfloat16 array (``ml_dtypes``, as JAX
-    hands it over) keeps its bits through an int16 view."""
+    """A copy of a numpy array on ``dev``; a bfloat16 array (``ml_dtypes``,
+    as JAX hands it over) keeps its bits through an int16 view.  Always a
+    copy: the KV cache is written in place, and JAX's arrays are
+    read-only views of its own buffers."""
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(
+        return torch.from_numpy(np.array(a).view(np.int16)).view(
             torch.bfloat16).to(dev)
     return torch.tensor(a, device=dev)
+
+
+def _model_from_arrays(tree: dict, defs, build, what: str,
+                       dev: torch.device):
+    """``build(tree of tensors on dev)`` after checking that ``tree`` holds
+    exactly the leaves of ``defs``, each a float32 array of the declared
+    shape; nothing is cast."""
+    from repro_torch.distributed.pspec import tree_items
+    defs = dict(tree_items(defs))
+    host = dict(tree_items(tree))
+    if set(defs) != set(host):
+        raise ValueError(f"need exactly the {what} parameters; missing "
+                         f"{sorted(set(defs) - set(host))}, unexpected "
+                         f"{sorted(set(host) - set(defs))}")
+    for name, d in defs.items():
+        a = np.asarray(host[name])
+        if a.shape != d.shape or a.dtype != np.float32:
+            raise ValueError(f"{name}: need float32 {d.shape}, got "
+                             f"{a.dtype} {a.shape}")
+
+    def up(node):
+        if isinstance(node, dict):
+            return {k: up(v) for k, v in node.items()}
+        return _tensor(np.asarray(node), dev)
+
+    return build(up(tree))
 
 
 def rwkv_params_from_arrays(
@@ -136,27 +167,30 @@ def rwkv_params_from_arrays(
     ``head``), each a float32 array of the declared shape; nothing is
     cast.
     """
-    from repro_torch.distributed.pspec import tree_items
     from repro_torch.models import rwkv
-    dev = resolve_device(device)
-    defs = dict(tree_items(rwkv.param_defs(cfg)))
-    host = dict(tree_items(tree))
-    if set(defs) != set(host):
-        raise ValueError(f"need exactly the RWKV6 parameters; missing "
-                         f"{sorted(set(defs) - set(host))}, unexpected "
-                         f"{sorted(set(host) - set(defs))}")
-    for name, d in defs.items():
-        a = np.asarray(host[name])
-        if a.shape != d.shape or a.dtype != np.float32:
-            raise ValueError(f"{name}: need float32 {d.shape}, got "
-                             f"{a.dtype} {a.shape}")
+    return _model_from_arrays(tree, rwkv.param_defs(cfg),
+                              lambda t: rwkv.RWKV6(cfg, t), "RWKV6",
+                              resolve_device(device))
 
-    def up(node):
-        if isinstance(node, dict):
-            return {k: up(v) for k, v in node.items()}
-        return _tensor(np.asarray(node), dev)
 
-    return rwkv.RWKV6(cfg, up(tree))
+def transformer_params_from_arrays(
+    tree: dict,
+    *,
+    cfg: ArchConfig,
+    device: "str | torch.device | None" = None,
+):
+    """The port's dense or VLM transformer over a JAX parameter tree.
+
+    ``tree`` holds exactly the leaves of ``transformer.param_defs(cfg)``
+    (``embed``, ``layers.{ln1,ln2,attn.*,mlp.*}`` stacked over layers,
+    ``ln_f``, and ``head`` unless the embeddings are tied, ``img_proj``
+    for the VLM), each a float32 array of the declared shape; nothing is
+    cast.  An MoE or MLA config raises ``NotImplementedError``.
+    """
+    from repro_torch.models import transformer
+    return _model_from_arrays(tree, transformer.param_defs(cfg),
+                              lambda t: transformer.Transformer(cfg, t),
+                              "transformer", resolve_device(device))
 
 
 def rwkv_cache_from_arrays(
@@ -190,3 +224,43 @@ def rwkv_cache_from_arrays(
             raise ValueError(f"{grp}.{name}: need {want_dt}, got {a.dtype}")
         out[grp][name] = t
     return out
+
+
+def transformer_cache_from_arrays(
+    tree: dict,
+    *,
+    cfg: ArchConfig,
+    batch: int,
+    device: "str | torch.device | None" = None,
+) -> dict:
+    """The port's KV cache from a JAX one: ``layers.k`` and ``layers.v``
+    (L, batch, S, Hkv, Dh) bfloat16, nothing cast, and ``layers.len``,
+    JAX's (L,) int32 per-layer lengths, which must all be equal and at
+    most S: they become the cache's one host length."""
+    from repro_torch.models.layers import COMPUTE_DTYPE
+    dev = resolve_device(device)
+    if set(tree) != {"layers"} or set(tree["layers"]) != {"k", "v", "len"}:
+        raise ValueError("need exactly layers.k, layers.v and layers.len")
+    lay = tree["layers"]
+    Ln = cfg.n_layers
+    S = np.asarray(lay["k"]).shape[2] if np.ndim(lay["k"]) == 5 else -1
+    want = (Ln, batch, S, cfg.n_kv_heads, cfg.head_dim)
+    out: dict = {}
+    for name in ("k", "v"):
+        a = np.asarray(lay[name])
+        if a.shape != want:
+            raise ValueError(f"layers.{name}: need {want}, got {a.shape}")
+        t = _tensor(a, dev)
+        if t.dtype != COMPUTE_DTYPE:
+            raise ValueError(f"layers.{name}: need {COMPUTE_DTYPE}, got "
+                             f"{a.dtype}")
+        out[name] = t
+    lens = np.asarray(lay["len"])
+    if lens.shape != (Ln,) or lens.dtype != np.int32:
+        raise ValueError(f"layers.len: need int32 ({Ln},), got {lens.dtype} "
+                         f"{lens.shape}")
+    if lens.min() != lens.max() or not 0 <= int(lens[0]) <= S:
+        raise ValueError(f"layers.len: need one length in [0, {S}] for "
+                         f"every layer, got {lens.tolist()}")
+    out["len"] = int(lens[0])
+    return {"layers": out}

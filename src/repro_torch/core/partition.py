@@ -19,6 +19,7 @@ all of partition p's subtrees train before partition p+1's.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 
@@ -152,9 +153,12 @@ def train_partitioned_dt(
       contract in ``repro_torch.core.tree``).  ``device`` is read by this
       trainer only.
 
-    Each partition's fleet grows inside the span ``fit/level``; the JAX
-    package's labelled ``fit_trees_total{trainer}`` and
-    ``fit_level_seconds{trainer}`` are not recorded yet (ROADMAP A.10).  SIDs are assigned in partition-major level order
+    Each partition's fleet grows inside the span ``fit/level``; the
+    process registry counts its subtrees in ``fit_trees_total{trainer}``
+    and, while ``SPLIDT_OBS`` is on, records its wall time in the
+    histogram ``fit_level_seconds{trainer}``, as the JAX package does
+    (label values ``numpy`` and ``torch``, where JAX's are ``numpy`` and
+    ``jax``).  SIDs are assigned in partition-major level order
     (partition 0's subtree, then partition 1's subtrees in the order
     their parent leaves appear, ...) so both trainers number subtrees
     identically.
@@ -184,6 +188,7 @@ def train_partitioned_dt(
         depth = int(partition_sizes[partition])
         fleet_X = [X_windows[rows, partition, :] for rows, _, _ in frontier]
         fleet_y = [y[rows] for rows, _, _ in frontier]
+        grow_t0 = time.perf_counter() if obs.enabled() else 0.0
         with obs.span("fit/level"):
             if trainer == "torch":
                 from repro_torch.fit import train_forest
@@ -199,6 +204,16 @@ def train_partitioned_dt(
                                     max_bins=max_bins,
                                     allowed_features=allowed)
                          for Xs, ys in zip(fleet_X, fleet_y)]
+        reg_obs = obs.get_registry()
+        reg_obs.counter("fit_trees_total", "subtrees grown",
+                        labels={"trainer": trainer}).inc(len(trees))
+        if obs.enabled():
+            reg_obs.histogram(
+                "fit_level_seconds",
+                "wall-clock per-partition subtree-fleet grow time",
+                edges=obs.exp_edges(1e-4, 100.0, 13),
+                labels={"trainer": trainer},
+            ).record(time.perf_counter() - grow_t0)
 
         next_frontier: list[tuple[np.ndarray, int, int]] = []
         last = partition + 1 >= p

@@ -5,6 +5,12 @@ over a fixed slot pool.
         --slots 4 --requests 12 --max-new 16                 # reduced
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \\
         --no-reduced --slots 8 --max-len 2048                # full width
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch tinyllama-1.1b --device cpu                   # reduced, CPU
+
+``--arch`` takes every architecture the port serves: ``rwkv6-1.6b`` and
+the dense and VLM transformers (tinyllama-1.1b, granite-3-2b,
+stablelm-3b, minitron-8b, paligemma-3b; served on text prompts alone).
 
 An open request stream served with a FIXED pool of cache slots;
 admission into freed slots every engine tick.  ``--device`` defaults to

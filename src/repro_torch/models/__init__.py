@@ -1,1 +1,2 @@
-"""LM prototype models (port of ``repro.models``): RWKV6 so far."""
+"""LM prototype models (port of ``repro.models``): RWKV6 and the dense/VLM
+transformer."""

@@ -1,5 +1,6 @@
 """Model registry (port of ``repro.models.model_zoo``): a uniform API over
-the families the port serves -- so far the SSM family (RWKV6).
+the families the port serves -- the SSM family (RWKV6), and the dense and
+VLM families (the transformer).
 
     zoo    = get_model(cfg)
     defs   = zoo.param_defs(cfg)                         # ParamDef tree
@@ -15,13 +16,11 @@ from typing import Callable
 
 from repro_torch.configs.base import ArchConfig, Family
 from repro_torch.distributed import pspec
-from repro_torch.models import rwkv
+from repro_torch.models import rwkv, transformer
 
 #: the ROADMAP item that ports each family still missing
 NOT_PORTED = {
-    Family.DENSE: "ROADMAP A.11 (transformer family)",
     Family.MOE: "ROADMAP A.11 (MoE and MLA families)",
-    Family.VLM: "ROADMAP A.11 (transformer family, VLM prefix)",
     Family.AUDIO: "ROADMAP A.11 (Whisper family)",
     Family.HYBRID: "ROADMAP A.11 (Mamba2/Zamba2 family)",
 }
@@ -40,6 +39,10 @@ def get_model(cfg: ArchConfig) -> Zoo:
     if cfg.family == Family.SSM:
         return Zoo(rwkv.param_defs, rwkv.loss_fn, rwkv.forward,
                    rwkv.init_cache, rwkv.RWKV6)
+    if cfg.family in (Family.DENSE, Family.VLM):
+        return Zoo(transformer.param_defs, transformer.loss_fn,
+                   transformer.forward, transformer.init_cache,
+                   transformer.Transformer)
     raise NotImplementedError(f"{cfg.family.value} family ({cfg.arch_id}) "
                               f"is not ported yet: {NOT_PORTED[cfg.family]}")
 

@@ -13,8 +13,8 @@ takes the place of ``scan_layers``.
 The JAX dtype steps are kept: activations in bf16, each weight cast to
 bf16 at its product, the decay ``exp(-exp(wlog))`` and the recurrence in
 f32.  Outside autograd the bf16 copies of the f32 weights are made once
-and reused (:meth:`RWKV6.bf16`), which gives the same numbers as casting
-at every call.
+and reused (:meth:`~repro_torch.models.layers.LMModule.bf16`), which
+gives the same numbers as casting at every call.
 
 Decode state per layer: time-mix token-shift (B, D), channel-mix
 token-shift (B, D), and the recurrent matrix state (B*H, hd, hd) -- O(1)
@@ -26,7 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.distributed.pspec import ParamDef, stack_tree, tree_items
+from repro_torch.distributed.pspec import ParamDef, stack_tree
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
 from repro_torch.models.layers import COMPUTE_DTYPE
@@ -88,16 +88,7 @@ def _shift(x: torch.Tensor, prev: torch.Tensor | None) -> torch.Tensor:
     return torch.cat([first, x[:, :-1]], dim=1)
 
 
-class _Params(nn.Module):
-    """A flat group of stacked parameters (one subtree of the JAX tree)."""
-
-    def __init__(self, tree: dict[str, torch.Tensor]):
-        super().__init__()
-        for name, t in tree.items():
-            self.register_parameter(name, nn.Parameter(t))
-
-
-class TimeMix(_Params):
+class TimeMix(L.ParamGroup):
     """RWKV6 time-mix of one layer, with the stacked ``layers.tm.*``."""
 
     def forward(self, model: "RWKV6", i: int, x: torch.Tensor,
@@ -147,7 +138,7 @@ class TimeMix(_Params):
         return out, new_state
 
 
-class ChannelMix(_Params):
+class ChannelMix(L.ParamGroup):
     """RWKV6 channel-mix of one layer, with the stacked ``layers.cm.*``."""
 
     def forward(self, model: "RWKV6", i: int, x: torch.Tensor,
@@ -174,7 +165,7 @@ class _Layers(nn.Module):
         self.cm = ChannelMix(tree["cm"])
 
 
-class RWKV6(nn.Module):
+class RWKV6(L.LMModule):
     """The model's parameters and its forward pass.
 
     Built from a tree of tensors shaped as :func:`param_defs` (the
@@ -186,42 +177,11 @@ class RWKV6(nn.Module):
     """
 
     def __init__(self, cfg: ArchConfig, tree: dict):
-        super().__init__()
-        want = dict(tree_items(param_defs(cfg)))
-        got = dict(tree_items(tree))
-        if set(want) != set(got):
-            raise ValueError(f"parameter tree mismatch: missing "
-                             f"{sorted(set(want) - set(got))}, unexpected "
-                             f"{sorted(set(got) - set(want))}")
-        for name, d in want.items():
-            t = got[name]
-            if tuple(t.shape) != d.shape or t.dtype != d.dtype:
-                raise ValueError(f"{name}: need {d.dtype} {d.shape}, got "
-                                 f"{t.dtype} {tuple(t.shape)}")
-        self.cfg = cfg
+        super().__init__(cfg, param_defs(cfg), tree)
         self.embed = nn.Parameter(tree["embed"])
         self.layers = _Layers(tree["layers"])
         self.ln_f = nn.Parameter(tree["ln_f"])
         self.head = nn.Parameter(tree["head"])
-        self._bf16: dict[tuple[int, str], tuple[int, torch.Tensor]] = {}
-
-    @property
-    def device(self) -> torch.device:
-        return self.embed.device
-
-    def bf16(self, owner: nn.Module, name: str) -> torch.Tensor:
-        """``owner.<name>`` cast to the compute dtype.  Under autograd the
-        cast is made at every call (it carries the gradient); otherwise
-        one copy is kept until the parameter changes in place."""
-        p = getattr(owner, name)
-        if torch.is_grad_enabled() and p.requires_grad:
-            return p.to(COMPUTE_DTYPE)
-        key = (id(owner), name)
-        hit = self._bf16.get(key)
-        if hit is None or hit[0] != p._version:
-            hit = (p._version, p.detach().to(COMPUTE_DTYPE))
-            self._bf16[key] = hit
-        return hit[1]
 
     def forward(self, batch: dict, *, mode: str = "train",
                 cache: dict | None = None, impl: str | None = None):

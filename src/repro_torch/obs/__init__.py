@@ -1,10 +1,16 @@
 """Telemetry for the engine and the serving stack (port of ``repro.obs``):
-a :class:`MetricRegistry` of labelled counters, gauges and fixed-bucket
-histograms with a process default (``obs.metrics``), and nestable
-:func:`span` markers that open ``torch.profiler.record_function`` ranges
-behind the ``SPLIDT_OBS`` switch (``obs.trace``).  The reporter
-(``MetricsReporter``) and the Prometheus / JSON exposition are not ported
-yet (ROADMAP A.10).
+
+* :mod:`repro_torch.obs.metrics` -- a :class:`MetricRegistry` of labelled
+  counters, gauges and fixed-bucket histograms with a process default,
+  snapshot deltas, and Prometheus-text and JSON exposition;
+* :mod:`repro_torch.obs.trace` -- nestable wall-clock :func:`span` hooks
+  that open ``torch.profiler.record_function`` ranges, behind the
+  ``SPLIDT_OBS`` switch, and the rendered :func:`span_tree`;
+* :mod:`repro_torch.obs.reporter` -- :class:`MetricsReporter`, a periodic
+  JSONL dumper with an optional ``http.server`` scrape endpoint.
+
+Counters and gauges always record; only wall-clock timing -- spans and
+latency-histogram fills -- honours the ``SPLIDT_OBS`` switch.
 """
 from .metrics import (
     Counter,
@@ -15,13 +21,24 @@ from .metrics import (
     get_registry,
     set_registry,
 )
-from .trace import enabled, reset_spans, set_enabled, span, span_totals
+from .reporter import MetricsReporter
+from .trace import (
+    SpanNode,
+    enabled,
+    reset_spans,
+    set_enabled,
+    span,
+    span_totals,
+    span_tree,
+)
 
 __all__ = [
     "Counter",
     "Gauge",
     "Histogram",
     "MetricRegistry",
+    "MetricsReporter",
+    "SpanNode",
     "enabled",
     "exp_edges",
     "get_registry",
@@ -30,4 +47,5 @@ __all__ = [
     "set_registry",
     "span",
     "span_totals",
+    "span_tree",
 ]

@@ -1,5 +1,5 @@
 """Process-local metrics: counters, gauges, fixed-bucket histograms (a
-copy of the part of ``repro.obs.metrics`` the flow-table server uses).
+copy of ``repro.obs.metrics``).
 
 The registry is the single source of runtime truth for the serving
 stack: ``ServerStats`` is a thin view over it.  Every cell is a Python
@@ -11,9 +11,11 @@ registry; :func:`get_registry` / :func:`set_registry` hold the process
 default that the engine, the streaming scheduler, the autotuner and the
 design-space search (``core.dse``) record into.  A metric's identity is
 its name and its sorted labels; a snapshot keys a labelled metric as
-``name{k="v",...}``, as the JAX package's registry does.  The
-Prometheus/JSON exposition and snapshot deltas are not ported (ROADMAP
-A.10).
+``name{k="v",...}``, as the JAX package's registry does.  The registry
+exposes itself as Prometheus text (:meth:`MetricRegistry.to_prometheus`)
+and JSON (:meth:`MetricRegistry.to_json`), byte for byte what the JAX
+registry writes after the same records, and two snapshots subtract
+(:meth:`MetricRegistry.delta`).
 
 >>> reg = MetricRegistry()
 >>> reg.counter("serve_packets_total", "packets ingested").inc(128)
@@ -29,6 +31,8 @@ A.10).
 """
 from __future__ import annotations
 
+import json
+import math
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -100,6 +104,9 @@ class Gauge:
     def set(self, value: float) -> None:
         self.value = float(value)
 
+    def add(self, by: float) -> None:
+        self.value += float(by)
+
 
 class Histogram:
     """Fixed-bucket histogram over ``edges`` (sorted, ascending).
@@ -143,6 +150,23 @@ class Histogram:
         np.add.at(self.counts, idx, 1)
         self.total += int(v.size)
         self.sum += float(v.sum())
+
+    def quantile(self, q: float) -> float:
+        """Upper bucket edge containing the ``q`` quantile (the usual
+        Prometheus-style conservative estimate); NaN when empty."""
+        if not (0.0 <= q <= 1.0):
+            raise ValueError("q must be in [0, 1]")
+        if self.total == 0:
+            return float("nan")
+        cum = np.cumsum(self.counts)
+        i = int(np.searchsorted(cum, q * self.total, side="left"))
+        if i >= self.edges.size:
+            return float("inf")
+        return float(self.edges[i])
+
+    def bucket_of(self, value: float) -> int:
+        """Index of the bucket a sample would land in."""
+        return int(np.searchsorted(self.edges, value, side="right"))
 
 
 class MetricRegistry:
@@ -208,6 +232,82 @@ class MetricRegistry:
             }
         return {"counters": counters, "gauges": gauges,
                 "histograms": histograms}
+
+    @staticmethod
+    def delta(before: Mapping[str, dict],
+              after: Mapping[str, dict]) -> Dict[str, dict]:
+        """Snapshot-vs-snapshot difference (counters + histogram counts;
+        gauges report the *after* value)."""
+        out: Dict[str, dict] = {"counters": {}, "gauges": {},
+                                "histograms": {}}
+        for k, v in after.get("counters", {}).items():
+            prev = before.get("counters", {}).get(k, {}).get("value", 0)
+            out["counters"][k] = {"value": v["value"] - prev}
+        for k, v in after.get("gauges", {}).items():
+            out["gauges"][k] = {"value": v["value"]}
+        for k, v in after.get("histograms", {}).items():
+            prev = before.get("histograms", {}).get(k)
+            pc = prev["counts"] if prev else [0] * len(v["counts"])
+            out["histograms"][k] = {
+                "edges": v["edges"],
+                "counts": [a - b for a, b in zip(v["counts"], pc)],
+                "total": v["total"] - (prev["total"] if prev else 0),
+                "sum": v["sum"] - (prev["sum"] if prev else 0.0),
+            }
+        return out
+
+    # -- exposition --------------------------------------------------------
+    def to_json(self, indent: Optional[int] = None) -> str:
+        return json.dumps(self.snapshot(), indent=indent, sort_keys=True)
+
+    def to_prometheus(self) -> str:
+        """Prometheus text exposition (v0.0.4) of the whole registry.
+        ``# HELP`` and ``# TYPE`` lines head the unlabelled metric of a
+        name only, as the JAX registry writes them."""
+        lines: List[str] = []
+        for (name, lk), c in sorted(self._counters.items()):
+            if c.help and not lk:
+                lines.append(f"# HELP {name} {c.help}")
+            if not lk:
+                lines.append(f"# TYPE {name} counter")
+            lines.append(f"{name}{_label_suffix(lk)} {c.value}")
+        for (name, lk), g in sorted(self._gauges.items()):
+            if g.help and not lk:
+                lines.append(f"# HELP {name} {g.help}")
+            if not lk:
+                lines.append(f"# TYPE {name} gauge")
+            lines.append(f"{name}{_label_suffix(lk)} {_fmt(g.value)}")
+        for (name, lk), h in sorted(self._histograms.items()):
+            if h.help and not lk:
+                lines.append(f"# HELP {name} {h.help}")
+            if not lk:
+                lines.append(f"# TYPE {name} histogram")
+            cum = 0
+            base = dict(lk)
+            for edge, cnt in zip(h.edges, h.counts[:-1]):
+                cum += int(cnt)
+                le = _label_suffix(_label_key({**base, "le": _fmt(edge)}))
+                lines.append(f"{name}_bucket{le} {cum}")
+            cum += int(h.counts[-1])
+            le = _label_suffix(_label_key({**base, "le": "+Inf"}))
+            lines.append(f"{name}_bucket{le} {cum}")
+            lines.append(f"{name}_sum{_label_suffix(lk)} {_fmt(h.sum)}")
+            lines.append(f"{name}_count{_label_suffix(lk)} {h.total}")
+        return "\n".join(lines) + "\n"
+
+
+def _fmt(x: float) -> str:
+    """A sample value as Prometheus text: integral values without a
+    fraction, infinities as ``+Inf`` / ``-Inf``, NaN as ``NaN``, else
+    ``repr``.  (The JAX package's ``_fmt`` raises on NaN, at
+    ``int(x)``; a gauge set to NaN would break its whole exposition.)"""
+    if math.isnan(x):
+        return "NaN"
+    if math.isinf(x):
+        return "+Inf" if x > 0 else "-Inf"
+    if float(x) == int(x) and abs(x) < 1e15:
+        return str(int(x))
+    return repr(float(x))
 
 
 _DEFAULT = MetricRegistry()

@@ -5,8 +5,9 @@
 ``torch.profiler.record_function`` range of the same name, so a
 ``torch.profiler`` trace attributes the device work the region launched
 to ``tick/admit``, ``tick/pack``, ``tick/dispatch`` or ``tick/fetch``.
-Spans nest: a span entered inside another is recorded under it, and
-:func:`span_totals` reads the accumulated calls and seconds per path.
+Spans nest: a span entered inside another is recorded under it;
+:func:`span_tree` renders the accumulated hierarchy as the JAX package
+does and :func:`span_totals` reads the calls and seconds per path.
 
 The switch is the ``SPLIDT_OBS`` environment variable, read once at
 import and flipped at run time with :func:`set_enabled`: off, :func:`span`
@@ -24,7 +25,8 @@ from typing import Dict, List, Optional
 
 import torch
 
-__all__ = ["enabled", "reset_spans", "set_enabled", "span", "span_totals"]
+__all__ = ["SpanNode", "enabled", "reset_spans", "set_enabled", "span",
+           "span_totals", "span_tree"]
 
 _ENABLED = os.environ.get("SPLIDT_OBS", "1") not in ("0", "false", "off")
 
@@ -60,6 +62,17 @@ class SpanNode:
         if node is None:
             node = self.children[name] = SpanNode(name)
         return node
+
+    def render(self, indent: int = 0) -> List[str]:
+        lines = []
+        if self.name:
+            lines.append("%s%-28s %8d calls  %10.3f ms" % (
+                "  " * indent, self.name, self.count,
+                self.total_s * 1e3))
+        for key in sorted(self.children):
+            lines.extend(self.children[key].render(
+                indent + (1 if self.name else 0)))
+        return lines
 
 
 class _SpanState(threading.local):
@@ -123,6 +136,14 @@ def span(name: str):
     if not _ENABLED:
         return _NULL
     return _Span(name)
+
+
+def span_tree() -> str:
+    """Render this thread's accumulated span hierarchy."""
+    lines = _STATE.root.render()
+    if not lines:
+        return "(no spans recorded)"
+    return "\n".join(lines)
 
 
 def span_totals() -> Dict[str, dict]:

@@ -51,9 +51,11 @@ class EngineStats:
 class ContinuousBatcher:
     """The serving engine over one device (``device=None``: the card).
 
-    ``params`` is the model (``model_zoo.get_model(cfg).build(...)``) and
-    must live on ``device``: on the card every layer runs the
-    ``chunk_scan`` kernel, on the CPU its plain version.
+    ``params`` is the model (``model_zoo.get_model(cfg).build(...)``: an
+    RWKV6 or a dense/VLM transformer) and must live on ``device``.  Each
+    slot keeps the family's own cache (RWKV6's recurrent state, whose
+    time-mix runs the ``chunk_scan`` kernel on the card; the
+    transformer's KV cache of ``max_len`` positions).
     """
 
     def __init__(self, cfg: ArchConfig, params, *, slots: int,

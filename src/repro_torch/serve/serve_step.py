@@ -1,9 +1,9 @@
 """Serving steps (port of ``repro.serve.serve_step``): prefill, and
 decode with greedy or temperature sampling.
 
-The returned functions take the model (an ``RWKV6`` module, the port's
-parameters) where the JAX steps take the parameter tree, and run under
-``torch.no_grad``.  At temperature > 0 the decode step samples with the
+The returned functions take the model (the port's parameters: an
+``RWKV6`` or a ``Transformer`` module) where the JAX steps take the
+parameter tree, and run under ``torch.no_grad``.  At temperature > 0 the decode step samples with the
 ``torch.Generator`` it is given, whose draws are not JAX's.
 """
 from __future__ import annotations

@@ -507,17 +507,23 @@ def test_init_params_follows_the_init_rules():
 
 
 def test_registry_names_what_is_not_ported():
-    assert sorted(ARCHS) == ["rwkv6-1.6b"]
-    with pytest.raises(KeyError, match="A.11"):
-        get_arch("tinyllama-1.1b")
+    """The registry serves RWKV6 and the five dense/VLM transformers; the
+    MoE, Whisper and Zamba2 configs and families still name A.11."""
+    assert sorted(ARCHS) == sorted([
+        "rwkv6-1.6b", "tinyllama-1.1b", "granite-3-2b", "stablelm-3b",
+        "minitron-8b", "paligemma-3b"])
+    for arch in ("qwen2-moe-a2.7b", "deepseek-v2-236b", "whisper-medium",
+                 "zamba2-2.7b"):
+        with pytest.raises(KeyError, match="A.11"):
+            get_arch(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("nope")
     import dataclasses
     from repro_torch.configs.base import Family
-    hybrid = dataclasses.replace(get_arch("rwkv6-1.6b"),
-                                 family=Family.HYBRID)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        model_zoo.get_model(hybrid)
+    for family in (Family.MOE, Family.AUDIO, Family.HYBRID):
+        cfg = dataclasses.replace(get_arch("rwkv6-1.6b"), family=family)
+        with pytest.raises(NotImplementedError, match="A.11"):
+            model_zoo.get_model(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -627,5 +633,5 @@ def test_launch_serve_cli_completes_on_cpu(capsys):
                         "--device", "cpu"])
     assert stats.completed == 3 and max(stats.slot_occupancy) <= 2
     assert "completed 3/3 requests" in capsys.readouterr().out
-    with pytest.raises(SystemExit):
-        serve.main(["--arch", "tinyllama-1.1b", "--device", "cpu"])
+    with pytest.raises(SystemExit):        # not ported: not a choice
+        serve.main(["--arch", "zamba2-2.7b", "--device", "cpu"])
