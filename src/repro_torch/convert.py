@@ -20,10 +20,11 @@ An RWKV6 parameter tree (``repro.models.rwkv.param_defs`` materialised:
 nested dicts of numpy arrays, stacked over the layers) becomes the
 port's model (:func:`rwkv_params_from_arrays`), and a JAX decode cache
 becomes the port's cache (:func:`rwkv_cache_from_arrays`), so the port
-can decode from a state that JAX prefilled.  The dense and VLM
-transformer's tree and KV cache cross the same way
+can decode from a state that JAX prefilled.  The transformer's tree
+(dense, VLM and MoE) and KV cache cross the same way
 (:func:`transformer_params_from_arrays`,
-:func:`transformer_cache_from_arrays`).
+:func:`transformer_cache_from_arrays`), and so do Zamba2's
+(:func:`zamba2_params_from_arrays`, :func:`zamba2_cache_from_arrays`).
 
 This module takes plain numpy, so it imports nothing of the JAX package.
 """
@@ -179,18 +180,39 @@ def transformer_params_from_arrays(
     cfg: ArchConfig,
     device: "str | torch.device | None" = None,
 ):
-    """The port's dense or VLM transformer over a JAX parameter tree.
+    """The port's dense, VLM or MoE transformer over a JAX parameter tree.
 
     ``tree`` holds exactly the leaves of ``transformer.param_defs(cfg)``
-    (``embed``, ``layers.{ln1,ln2,attn.*,mlp.*}`` stacked over layers,
-    ``ln_f``, and ``head`` unless the embeddings are tied, ``img_proj``
-    for the VLM), each a float32 array of the declared shape; nothing is
-    cast.  An MoE or MLA config raises ``NotImplementedError``.
+    (``embed``, ``layers.{ln1,ln2,attn.*}`` and ``layers.mlp.*`` or
+    ``layers.moe.*`` stacked over layers, ``lead_layers.*`` before them
+    where the MoE config has dense lead layers, ``ln_f``, and ``head``
+    unless the embeddings are tied, ``img_proj`` for the VLM), each a
+    float32 array of the declared shape; nothing is cast.  An MLA config
+    raises ``NotImplementedError``.
     """
     from repro_torch.models import transformer
     return _model_from_arrays(tree, transformer.param_defs(cfg),
                               lambda t: transformer.Transformer(cfg, t),
                               "transformer", resolve_device(device))
+
+
+def zamba2_params_from_arrays(
+    tree: dict,
+    *,
+    cfg: ArchConfig,
+    device: "str | torch.device | None" = None,
+):
+    """The port's Zamba2 model over a JAX parameter tree.
+
+    ``tree`` holds exactly the leaves of ``mamba2.param_defs(cfg)``
+    (``embed``, ``mamba_layers.*`` stacked over layers, ``shared.{ln1,
+    attn.*,ln2,mlp.*}``, ``ln_f``, ``head``), each a float32 array of the
+    declared shape; nothing is cast.
+    """
+    from repro_torch.models import mamba2
+    return _model_from_arrays(tree, mamba2.param_defs(cfg),
+                              lambda t: mamba2.Zamba2(cfg, t), "Zamba2",
+                              resolve_device(device))
 
 
 def rwkv_cache_from_arrays(
@@ -239,28 +261,85 @@ def transformer_cache_from_arrays(
     most S: they become the cache's one host length."""
     from repro_torch.models.layers import COMPUTE_DTYPE
     dev = resolve_device(device)
-    if set(tree) != {"layers"} or set(tree["layers"]) != {"k", "v", "len"}:
+    if set(tree) != {"layers"}:
         raise ValueError("need exactly layers.k, layers.v and layers.len")
     lay = tree["layers"]
-    Ln = cfg.n_layers
-    S = np.asarray(lay["k"]).shape[2] if np.ndim(lay["k"]) == 5 else -1
-    want = (Ln, batch, S, cfg.n_kv_heads, cfg.head_dim)
+    S = np.asarray(lay["k"]).shape[2] if np.ndim(lay.get("k")) == 5 else -1
+    return {"layers": _kv_from_arrays(
+        lay, "layers", (cfg.n_layers, batch, S, cfg.n_kv_heads,
+                        cfg.head_dim), COMPUTE_DTYPE, dev)}
+
+
+def _kv_from_arrays(kv: dict, what: str, want: tuple, dtype: torch.dtype,
+                    dev: torch.device) -> dict:
+    """Stacked ``k``, ``v`` (n, batch, S, Hkv, Dh) of the shape ``want``
+    and ``dtype``, nothing cast, and JAX's (n,) int32 lengths, which must
+    all be equal and at most S: they become one host length."""
+    if set(kv) != {"k", "v", "len"}:
+        raise ValueError(f"need exactly {what}.k, {what}.v and {what}.len")
     out: dict = {}
     for name in ("k", "v"):
-        a = np.asarray(lay[name])
+        a = np.asarray(kv[name])
         if a.shape != want:
-            raise ValueError(f"layers.{name}: need {want}, got {a.shape}")
+            raise ValueError(f"{what}.{name}: need {want}, got {a.shape}")
         t = _tensor(a, dev)
-        if t.dtype != COMPUTE_DTYPE:
-            raise ValueError(f"layers.{name}: need {COMPUTE_DTYPE}, got "
-                             f"{a.dtype}")
+        if t.dtype != dtype:
+            raise ValueError(f"{what}.{name}: need {dtype}, got {a.dtype}")
         out[name] = t
-    lens = np.asarray(lay["len"])
-    if lens.shape != (Ln,) or lens.dtype != np.int32:
-        raise ValueError(f"layers.len: need int32 ({Ln},), got {lens.dtype} "
+    n, S = want[0], want[2]
+    lens = np.asarray(kv["len"])
+    if lens.shape != (n,) or lens.dtype != np.int32:
+        raise ValueError(f"{what}.len: need int32 ({n},), got {lens.dtype} "
                          f"{lens.shape}")
     if lens.min() != lens.max() or not 0 <= int(lens[0]) <= S:
-        raise ValueError(f"layers.len: need one length in [0, {S}] for "
+        raise ValueError(f"{what}.len: need one length in [0, {S}] for "
                          f"every layer, got {lens.tolist()}")
     out["len"] = int(lens[0])
-    return {"layers": out}
+    return out
+
+
+def zamba2_cache_from_arrays(
+    tree: dict,
+    *,
+    cfg: ArchConfig,
+    batch: int,
+    device: "str | torch.device | None" = None,
+) -> dict:
+    """The port's Zamba2 cache from a JAX one: ``mamba.conv`` (L, batch,
+    conv_dim - 1, C) bfloat16 and ``mamba.S`` (L, batch * H, N, hd)
+    float32, nothing cast; ``attn.k`` and ``attn.v`` (G, batch, S, Hkv,
+    Dh) bfloat16 (``mamba2.KV_DTYPE``) and ``attn.len``, JAX's (G,)
+    int32 per-group lengths, which must all be equal: they become the
+    cache's one host length."""
+    from repro_torch.models import mamba2
+    from repro_torch.models.layers import COMPUTE_DTYPE
+    dev = resolve_device(device)
+    if set(tree) != {"mamba", "attn"} or set(tree["mamba"]) != {"conv",
+                                                                  "S"}:
+        raise ValueError("need exactly mamba.conv, mamba.S and attn")
+    s = cfg.ssm
+    _, H, conv_ch = mamba2._dims(cfg)
+    Ln = cfg.n_layers
+    out: dict = {"mamba": {}}
+    for name, shape, dt in (
+            ("conv", (Ln, batch, s.conv_dim - 1, conv_ch), COMPUTE_DTYPE),
+            ("S", (Ln, batch * H, s.state_dim, s.head_dim), torch.float32)):
+        a = np.asarray(tree["mamba"][name])
+        if a.shape != shape:
+            raise ValueError(f"mamba.{name}: need {shape}, got {a.shape}")
+        t = _tensor(a, dev)
+        if t.dtype != dt:
+            raise ValueError(f"mamba.{name}: need {dt}, got {a.dtype}")
+        out["mamba"][name] = t
+    if not cfg.shared_attn_every:
+        if tree["attn"] is not None:
+            raise ValueError("attn: need None without a shared block")
+        out["attn"] = None
+        return out
+    kv = tree["attn"]
+    G = Ln // cfg.shared_attn_every
+    S = np.asarray(kv["k"]).shape[2] if np.ndim(kv.get("k")) == 5 else -1
+    out["attn"] = _kv_from_arrays(
+        kv, "attn", (G, batch, S, cfg.n_kv_heads, cfg.head_dim),
+        mamba2.KV_DTYPE, dev)
+    return out

@@ -62,6 +62,7 @@ per-packet serving is ``repro_torch.serve.flowtable``.
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Callable
 
 import numpy as np
@@ -214,7 +215,7 @@ def _walk_buffers(B: int, P: int, k: int, with_trace: bool,
     recircs.zero_()
     exit_p.fill_(-1)
     if survivors:
-        buf[-P:].zero_()
+        buf[-P:].fill_(B)             # each hop takes its done flows off
     carry = (torch.zeros(B, dtype=torch.int32, device=device),  # sid: root
              torch.zeros(B, dtype=torch.bool, device=device),   # done
              labels, recircs, exit_p)
@@ -243,9 +244,11 @@ def partition_walk(
     reads its window ``win_pkts[:, p]`` in place and updates the carry,
     whose verdict fields live in the buffer.  ``count_survivors`` appends
     the per-hop survivor counts, made on the device with no host sync:
-    the flows done after each hop but the last are summed from the
-    carry's ``done`` flags (one reduction a hop) and taken from B at the
-    end, so the host records them from P fetched words.
+    each word starts at B, and the flows done after each hop but the
+    last are taken off the next hop's word by the dense hop itself
+    (``survivors_out``: the hop kernel counts them in the launch) or,
+    after a compacted hop, summed from the carry's ``done`` flags, so
+    the host records them from P fetched words.
 
     With ``compact`` (the JAX package's ``_compacted_walk``) hop 0 runs
     dense and each later hop gets the survivor-first permutation of the
@@ -263,19 +266,21 @@ def partition_walk(
     if compact and trace is not None:
         trace[1:].zero_()
     caps = compaction.bucket_caps(B, compact_floor) if compact else None
-    # done before each hop; survivors = B - done, in place at the end
-    done_before = buf[-n_partitions:] if count_survivors else None
+    # the flows still walking as each hop starts
+    left = buf[-n_partitions:] if count_survivors else None
     for p in range(n_partitions):
-        survivors = {}
+        kw = {}
         if compact and p:
             rows, n_active = compaction.compact_perm(carry[1])
-            survivors = dict(rows=rows, n_active=n_active, caps=caps)
+            kw = dict(rows=rows, n_active=n_active, caps=caps)
+        count = left is not None and p + 1 < n_partitions
+        if count and not kw:
+            kw["survivors_out"] = left[p + 1]    # the dense hop counts
         hop(win_pkts[:, p], carry, dev, p, n_subtrees=n_subtrees,
-            regs_out=None if trace is None else trace[p], **survivors)
-        if done_before is not None and p + 1 < n_partitions:
-            torch.sum(carry[1], 0, dtype=torch.int32, out=done_before[p + 1])
-    if done_before is not None:
-        done_before.neg_().add_(B)
+            regs_out=None if trace is None else trace[p], **kw)
+        if count and "rows" in kw:
+            # a compacted hop visits the survivors alone
+            left[p + 1].sub_(torch.sum(carry[1], dtype=torch.int32))
     return buf
 
 
@@ -308,6 +313,22 @@ def fetch(buf: torch.Tensor) -> np.ndarray:
     return host
 
 
+# each registry's engine_hop_survivors_total counters, by hop: every
+# Engine.run records them, and the labelled look-up of P counters costs
+# more host time than the rest of the record
+_HOP_COUNTERS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _hop_counter(reg, p: int):
+    hops = _HOP_COUNTERS.setdefault(reg, [])
+    while len(hops) <= p:
+        hops.append(reg.counter(
+            "engine_hop_survivors_total",
+            "flows still walking when each hop starts",
+            labels={"hop": str(len(hops))}))
+    return hops[p]
+
+
 def _record_walk(survivors, B: int, *, compact: bool,
                  compact_floor: int) -> None:
     """Record the per-hop survivor counts (the walk's fetched
@@ -318,10 +339,7 @@ def _record_walk(survivors, B: int, *, compact: bool,
     reg = obs.get_registry()
     caps = compaction.bucket_caps(B, compact_floor) if compact else None
     for p, s in enumerate(int(n) for n in survivors):
-        reg.counter(
-            "engine_hop_survivors_total",
-            "flows still walking when each hop starts",
-            labels={"hop": str(p)}).inc(s)
+        _hop_counter(reg, p).inc(s)
         if caps is not None:
             cap = next(c for c in caps if c >= s)
             reg.counter(
@@ -346,9 +364,11 @@ class WalkBackend:
         P = engine._check_windows(win_pkts)
         k = engine.tables.dev.slot_op.shape[1]
         with obs.span("engine/dispatch"):
-            # f32 on the engine's device, as the JAX engine's jnp.asarray
-            x = torch.as_tensor(win_pkts[:, :P]).to(device=engine.device,
-                                                     dtype=torch.float32)
+            # f32 on the engine's device, as the JAX engine's jnp.asarray;
+            # the walk reads windows [:P] alone, so only a wider batch is cut
+            x = win_pkts if win_pkts.shape[1] == P else win_pkts[:, :P]
+            x = torch.as_tensor(x).to(device=engine.device,
+                                      dtype=torch.float32)
             buf = partition_walk(
                 x, engine.tables.dev, n_subtrees=engine.tables.n_subtrees,
                 n_partitions=P, with_trace=with_trace, hop=self.hop,
@@ -569,9 +589,11 @@ class Engine:
         from repro_torch.tuning import resolve_route
         opt = options if options is not None else EngineOptions()
         name, compact, floor, plan = resolve_route(self, opt, win_pkts)
+        if plan is not None:
+            # the backends read compact and compact_floor alone
+            opt = EngineOptions(compact=compact, compact_floor=floor)
         res = get_backend(name, device=self.device).run(
-            self, win_pkts, with_trace=with_trace, options=EngineOptions(
-                compact=compact, compact_floor=floor))
+            self, win_pkts, with_trace=with_trace, options=opt)
         res.plan = plan
         return res
 

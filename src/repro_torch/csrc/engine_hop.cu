@@ -24,7 +24,12 @@
 // In the dense walk done flows still compute their registers with their
 // frozen SID, because the trace holds them.  When `trace` is given the
 // registers are written there, row p of the (P, B, k) trace inside the
-// walk's fetch buffer.
+// walk's fetch buffer.  When `survivors` is given (the dense hop only)
+// the launch subtracts from it the flows done after the hop: the walk
+// starts the word at B, so it then holds the flows still walking when the
+// next hop starts.  Each CTA counts its own done flows with
+// __syncthreads_count and subtracts them with one atomic, so no reduction
+// kernel follows the hop.
 //
 // Survivor mode (early-exit compaction, kernels/compaction.py): with
 // `rows`, the survivor-first permutation of the walk's `done` flags, and
@@ -92,7 +97,7 @@ __global__ void __launch_bounds__(kWindowThreads) engine_hop_kernel(
     const float* __restrict__ pkts, long long flow_stride, long long B,
     int W, int k, int flows, int chunk, int stride, int p, Tables tb,
     Carry cy, float* __restrict__ trace, const int* __restrict__ rows,
-    const int* __restrict__ n_active) {
+    const int* __restrict__ n_active, int* __restrict__ survivors) {
   extern __shared__ __align__(16) float smem[];
   const long long b0 = (long long)blockIdx.x * flows;
   // survivor mode: only the first *n_active positions (at most B) may
@@ -126,20 +131,30 @@ __global__ void __launch_bounds__(kWindowThreads) engine_hop_kernel(
                                        tb.T);
   }
   __syncthreads();
-  if (!active || j != 0) return;
-  const int* marks = s_marks + f * k;
-  const int action = first_hit_leaf(
-      [&](int jj) { return marks[jj]; }, tb.leaf_lo + row * tb.L * k,
-      tb.leaf_hi + row * tb.L * k, tb.leaf_action + row * tb.L,
-      tb.leaf_valid + row * tb.L, k, tb.L);
-  if (cy.done[b]) return;
-  if (action >= tb.n_subtrees) {          // exit with a class
-    cy.labels[b] = action - tb.n_subtrees;
-    cy.exit_p[b] = p;
-    cy.done[b] = 1;
-  } else {                                // recirculate to `action`
-    cy.recircs[b] += 1;
-    cy.sid[b] = action;
+  bool done_after = false;                // set by lane 0 of each flow
+  if (active && j == 0) {
+    const int* marks = s_marks + f * k;
+    const int action = first_hit_leaf(
+        [&](int jj) { return marks[jj]; }, tb.leaf_lo + row * tb.L * k,
+        tb.leaf_hi + row * tb.L * k, tb.leaf_action + row * tb.L,
+        tb.leaf_valid + row * tb.L, k, tb.L);
+    done_after = cy.done[b];
+    if (!done_after) {
+      if (action >= tb.n_subtrees) {      // exit with a class
+        cy.labels[b] = action - tb.n_subtrees;
+        cy.exit_p[b] = p;
+        cy.done[b] = 1;
+        done_after = true;
+      } else {                            // recirculate to `action`
+        cy.recircs[b] += 1;
+        cy.sid[b] = action;
+      }
+    }
+  }
+  // uniform across the CTA, so every thread reaches the barrier
+  if (survivors != nullptr) {
+    const int n_done = __syncthreads_count(done_after);
+    if (threadIdx.x == 0 && n_done != 0) atomicSub(survivors, n_done);
   }
 }
 
@@ -149,7 +164,8 @@ __global__ void __launch_bounds__(kWindowThreads) engine_hop_kernel(
 // memory holds the staging ring, the predicate words and flows * k marks,
 // and `carveout` (percent) leaves L1 room for the copies in flight.
 // `trace` may be null; `rows` and `n_active` are both null (the dense hop)
-// or both set (survivor mode).  Returns a cudaError_t.
+// or both set (survivor mode); `survivors` may be set on a dense hop
+// only.  Returns a cudaError_t.
 extern "C" int engine_hop_launch(
     const float* pkts, long long flow_stride, long long B, int W, int k,
     int flows, int chunk, int stride, int smem_bytes, int carveout, int p,
@@ -158,9 +174,10 @@ extern "C" int engine_hop_launch(
     const int* leaf_hi, const int* leaf_action, const int* leaf_valid, int S,
     int T, int L, int n_subtrees, int* sid, unsigned char* done, int* labels,
     int* recircs, int* exit_p, float* trace, const int* rows,
-    const int* n_active, void* stream) {
+    const int* n_active, int* survivors, void* stream) {
   if (B == 0) return 0;
-  if ((rows == nullptr) != (n_active == nullptr))
+  if ((rows == nullptr) != (n_active == nullptr)
+      || (rows != nullptr && survivors != nullptr))
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
       engine_hop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -177,7 +194,7 @@ extern "C" int engine_hop_launch(
   engine_hop_kernel<<<(unsigned)blocks, kWindowThreads, smem_bytes,
                       (cudaStream_t)stream>>>(
       pkts, flow_stride, B, W, k, flows, chunk, stride, p, tb, cy, trace,
-      rows, n_active);
+      rows, n_active, survivors);
   return (int)cudaGetLastError();
 }
 

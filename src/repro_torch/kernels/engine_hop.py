@@ -58,7 +58,7 @@ def _lib():
     if lib.engine_hop_launch.argtypes is None:
         p, n, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.engine_hop_launch.argtypes = (
-            [p, n, n] + [i] * 8 + [p] * 9 + [i] * 4 + [p] * 8 + [p])
+            [p, n, n] + [i] * 8 + [p] * 9 + [i] * 4 + [p] * 9 + [p])
         lib.engine_hop_launch.restype = ctypes.c_int
         lib.engine_hop_error_string.argtypes = [ctypes.c_int]
         lib.engine_hop_error_string.restype = ctypes.c_char_p
@@ -79,7 +79,8 @@ def engine_hop_kernel(pkts: torch.Tensor, carry, dev, p: int, *,
                       regs_out: torch.Tensor | None = None,
                       rows: torch.Tensor | None = None,
                       n_active: torch.Tensor | None = None,
-                      caps: tuple[int, ...] | None = None) -> None:
+                      caps: tuple[int, ...] | None = None,
+                      survivors_out: torch.Tensor | None = None) -> None:
     """Launch the hop kernel on the current stream: hop ``p`` of the walk,
     in place on ``carry``.
 
@@ -97,8 +98,12 @@ def engine_hop_kernel(pkts: torch.Tensor, carry, dev, p: int, *,
     are; ``caps`` is not read.  ``rows`` and ``n_active`` are
     ``compaction.compact_perm`` of the carry's ``done``, so the flows named
     are the survivors; a count above B reads as B and a row outside
-    ``[0, B)`` names no flow.  Raises on CPU tensors, on anything else the
-    kernel does not take and on a failed launch.
+    ``[0, B)`` names no flow.  ``survivors_out`` (int32, one element, on
+    the device; a dense hop only) loses the flows done after the hop,
+    counted by the launch itself: the walk starts it at B, so it then
+    holds the flows still walking.  Raises on CPU
+    tensors, on anything else the kernel does not take and on a failed
+    launch.
     """
     global launches, survivor_launches
     del caps                          # the plain version's ladder
@@ -130,6 +135,10 @@ def engine_hop_kernel(pkts: torch.Tensor, carry, dev, p: int, *,
     if rows is not None:
         _check("rows", rows, i32, (B,), d)
         _check("n_active", n_active.reshape(1), i32, (1,), d)
+    if survivors_out is not None:
+        if rows is not None:
+            raise ValueError("survivors_out counts a dense hop only")
+        _check("survivors_out", survivors_out.reshape(1), i32, (1,), d)
     if B == 0:
         return
     g = window_geometry(B, W, k)
@@ -143,7 +152,9 @@ def engine_hop_kernel(pkts: torch.Tensor, carry, dev, p: int, *,
         *ptr(sid, done, labels, recircs, exit_p),
         None if regs_out is None else regs_out.data_ptr(),
         None if rows is None else rows.data_ptr(),
-        None if n_active is None else n_active.data_ptr(), stream)
+        None if n_active is None else n_active.data_ptr(),
+        None if survivors_out is None else survivors_out.data_ptr(),
+        stream)
     if err != 0:
         msg = lib.engine_hop_error_string(err).decode()
         raise RuntimeError(f"engine_hop kernel launch failed: {msg}")
@@ -160,9 +171,13 @@ def step_hop(step: StepFn):
     (``compaction.compact_perm`` of the carry's ``done``) ``step`` runs on
     the survivors through the plain compacted step on the ladder ``caps``
     (default: ``bucket_caps(B)``), and ``regs_out`` rows of done flows are
-    left as they are, as the kernel leaves them."""
+    left as they are, as the kernel leaves them.  ``survivors_out`` (a
+    dense hop only) loses the flows done after the hop, summed from the
+    carry's flags."""
     def hop(pkts, carry, dev, p, *, n_subtrees, regs_out=None, rows=None,
-            n_active=None, caps=None):
+            n_active=None, caps=None, survivors_out=None):
+        if survivors_out is not None and rows is not None:
+            raise ValueError("survivors_out counts a dense hop only")
         if rows is None:
             regs, action = step(pkts, carry[0], dev)
         else:
@@ -177,6 +192,8 @@ def step_hop(step: StepFn):
             dst.copy_(src)
         if regs_out is not None:
             regs_out.copy_(regs)
+        if survivors_out is not None:
+            survivors_out.sub_(torch.sum(carry[1], dtype=torch.int32))
     return hop
 
 

@@ -8,9 +8,10 @@ over a fixed slot pool.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch tinyllama-1.1b --device cpu                   # reduced, CPU
 
-``--arch`` takes every architecture the port serves: ``rwkv6-1.6b`` and
-the dense and VLM transformers (tinyllama-1.1b, granite-3-2b,
-stablelm-3b, minitron-8b, paligemma-3b; served on text prompts alone).
+``--arch`` takes every architecture the port serves: ``rwkv6-1.6b``,
+``zamba2-2.7b``, the dense and VLM transformers (tinyllama-1.1b,
+granite-3-2b, stablelm-3b, minitron-8b, paligemma-3b; served on text
+prompts alone) and ``qwen2-moe-a2.7b``.
 
 An open request stream served with a FIXED pool of cache slots;
 admission into freed slots every engine tick.  ``--device`` defaults to

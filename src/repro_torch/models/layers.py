@@ -13,6 +13,7 @@ model's parameter tree and the bf16 copies its products read.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -360,7 +361,9 @@ def attention_block(
                          window=window)
         new_cache = {"k": ck, "v": cv, "len": cur + T}
     wo = p["wo"].to(COMPUTE_DTYPE)
-    out = out.reshape(B, T, -1) @ wo.reshape(-1, wo.shape[-1])
+    # a bf16 cache read against f32 products promotes, as in JAX
+    dt = torch.promote_types(out.dtype, wo.dtype)
+    out = out.reshape(B, T, -1).to(dt) @ wo.reshape(-1, wo.shape[-1]).to(dt)
     return out.to(x.dtype), new_cache
 
 
@@ -378,6 +381,39 @@ def init_kv_cache(batch: int, max_len: int, shape: AttnShape,
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA lowers it on the CPU: 1 / (1 + exp(-x)),
+    each step rounded to ``x``'s dtype.  Parity trap: ``torch.sigmoid``
+    on bf16 rounds once, and differs from JAX's in about a third of the
+    bf16 values."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``'s steps, x * sigmoid(x), each rounded to ``x``'s
+    dtype (torch's fused silu rounds once)."""
+    return x * sigmoid(x)
+
+
+def _in_dtype(c: float, dtype: torch.dtype) -> float:
+    """The constant ``c`` rounded to ``dtype``, as JAX casts a constant to
+    the array's dtype before using it."""
+    return float(torch.tensor(c, dtype=dtype))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (its default tanh approximation) step by step as
+    XLA lowers it on the CPU, each step rounded to ``x``'s dtype and the
+    two constants cast to it first:
+    x * 0.5 (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3))).  Parity trap:
+    ``F.gelu(approximate="tanh")`` on bf16 rounds once."""
+    c = _in_dtype(0.044715, x.dtype)
+    s = _in_dtype(math.sqrt(2.0 / math.pi), x.dtype)
+    cube = (x * x) * x
+    cdf = 0.5 * (1.0 + torch.tanh(s * (x + c * cube)))
+    return x * cdf
+
+
 def mlp_defs(d_model: int, d_ff: int, act: str) -> dict:
     if act in ("silu", "relu_sq"):   # gated
         return {
@@ -400,12 +436,9 @@ def mlp(p: dict, x: torch.Tensor, act: str) -> torch.Tensor:
         if act == "relu_sq":
             h = torch.square(torch.relu(g)) * u
         else:
-            # jax.nn.silu's steps, x * sigmoid(x), each rounded to bf16
-            # (torch's fused silu rounds once)
-            h = (g * torch.sigmoid(g)) * u
+            h = silu(g) * u
     else:
-        # parity trap: jax.nn.gelu defaults to the tanh approximation
-        h = F.gelu(xc @ p["wi"].to(COMPUTE_DTYPE), approximate="tanh")
+        h = gelu_tanh(xc @ p["wi"].to(COMPUTE_DTYPE))
     out = h @ p["wd"].to(COMPUTE_DTYPE)
     return out.to(x.dtype)
 

@@ -1,6 +1,7 @@
 """Model registry (port of ``repro.models.model_zoo``): a uniform API over
-the families the port serves -- the SSM family (RWKV6), and the dense and
-VLM families (the transformer).
+the families the port serves -- the SSM family (RWKV6), the hybrid
+family (Zamba2: Mamba2 and a shared attention block), and the dense, VLM
+and MoE families (the transformer; MoE without MLA).
 
     zoo    = get_model(cfg)
     defs   = zoo.param_defs(cfg)                         # ParamDef tree
@@ -16,13 +17,11 @@ from typing import Callable
 
 from repro_torch.configs.base import ArchConfig, Family
 from repro_torch.distributed import pspec
-from repro_torch.models import rwkv, transformer
+from repro_torch.models import mamba2, moe, rwkv, transformer
 
 #: the ROADMAP item that ports each family still missing
 NOT_PORTED = {
-    Family.MOE: "ROADMAP A.11 (MoE and MLA families)",
     Family.AUDIO: "ROADMAP A.11 (Whisper family)",
-    Family.HYBRID: "ROADMAP A.11 (Mamba2/Zamba2 family)",
 }
 
 
@@ -39,7 +38,14 @@ def get_model(cfg: ArchConfig) -> Zoo:
     if cfg.family == Family.SSM:
         return Zoo(rwkv.param_defs, rwkv.loss_fn, rwkv.forward,
                    rwkv.init_cache, rwkv.RWKV6)
-    if cfg.family in (Family.DENSE, Family.VLM):
+    if cfg.family == Family.HYBRID:
+        return Zoo(mamba2.param_defs, mamba2.loss_fn, mamba2.forward,
+                   mamba2.init_cache, mamba2.Zamba2)
+    if cfg.family in (Family.DENSE, Family.VLM, Family.MOE):
+        if cfg.mla is not None:
+            raise NotImplementedError(
+                f"{cfg.arch_id}: the MLA transformer is not ported yet: "
+                f"{transformer.NOT_PORTED}")
         return Zoo(transformer.param_defs, transformer.loss_fn,
                    transformer.forward, transformer.init_cache,
                    transformer.Transformer)
@@ -48,7 +54,13 @@ def get_model(cfg: ArchConfig) -> Zoo:
 
 
 def param_count(cfg: ArchConfig, active_only: bool = False) -> int:
-    """Total parameter count from the ParamDef tree (nothing allocated).
-    ``active_only`` differs from the total only for MoE, not ported."""
-    del active_only
-    return pspec.param_count(get_model(cfg).param_defs(cfg))
+    """Total (or routing-active) parameter count from the ParamDef tree
+    (nothing allocated): ``active_only`` leaves out the experts a token
+    is not routed to, pad experts included, on every MoE layer."""
+    total = pspec.param_count(get_model(cfg).param_defs(cfg))
+    if active_only and cfg.moe is not None:
+        m = cfg.moe
+        per_expert = 3 * cfg.d_model * m.d_ff_expert
+        n_moe_layers = cfg.n_layers - m.first_dense_layers
+        total -= (moe.padded_experts(m) - m.top_k) * per_expert * n_moe_layers
+    return total

@@ -1,0 +1,192 @@
+"""Mixture-of-Experts FFN (port of ``repro.models.moe``): top-k routing,
+shared experts, capacity-based dispatch.
+
+As in JAX, tokens are grouped one group a sequence; each group routes
+its tokens into per-expert buffers of capacity ``C`` by cumsum position
+assignment (GShard-style dropping), the expert products run batched over
+the expert dim, and the outputs gather back with gate weighting.  At
+decode token counts the dropless path dispatches by one-hot einsums over
+one global group instead (``_moe_decode_einsum``).  JAX reaches no Pallas
+kernel here, and the port runs plain PyTorch products: no expert
+parallelism (one card), so ``shard`` has no counterpart.
+
+Experts whose count does not divide JAX's 16-way expert axis are padded
+(Qwen's 60 -> 64); the pad experts are masked out of routing.
+
+Memory: the expert weights are cast to the compute dtype at each call,
+as JAX does, and no bf16 copy of them is kept (``LMModule.bf16`` would
+add half their f32 bytes again: 30.3 GB for ``qwen2-moe-a2.7b``).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import MoECfg
+from repro_torch.distributed.pspec import ParamDef
+from repro_torch.models import layers as L
+from repro_torch.models.layers import COMPUTE_DTYPE
+
+# the dropless path switches to the einsum dispatch at B*T <= this
+_DECODE_EINSUM_MAX_TOKENS = 1024
+_EINSUM_DECODE = True
+
+
+def set_einsum_decode(v: bool) -> None:
+    """Take the einsum dispatch for dropless calls of few tokens (on, as
+    in JAX) or always the scatter path (off)."""
+    global _EINSUM_DECODE
+    _EINSUM_DECODE = bool(v)
+
+
+def padded_experts(m: MoECfg, ep: int = 16) -> int:
+    e = m.n_experts
+    return ((e + ep - 1) // ep) * ep if e % ep else e
+
+
+def moe_defs(d_model: int, m: MoECfg) -> dict:
+    E = padded_experts(m)
+    F_ = m.d_ff_expert
+    d = {
+        "router": ParamDef((d_model, E), ("embed", "expert")),
+        "wg": ParamDef((E, d_model, F_), ("expert", "embed", "expert_mlp")),
+        "wu": ParamDef((E, d_model, F_), ("expert", "embed", "expert_mlp")),
+        "wd": ParamDef((E, F_, d_model), ("expert", "expert_mlp", "embed")),
+    }
+    if m.n_shared:
+        Fs = m.d_ff_shared
+        d["shared"] = {
+            "wg": ParamDef((d_model, Fs), ("embed", "mlp")),
+            "wu": ParamDef((d_model, Fs), ("embed", "mlp")),
+            "wd": ParamDef((Fs, d_model), ("mlp", "embed")),
+        }
+    return d
+
+
+def _route(xc: torch.Tensor, router: torch.Tensor, m: MoECfg, E: int):
+    """Router probabilities (f32, pad experts masked with -1e30 before
+    the softmax) and the top-k gates, renormalised, and experts.
+
+    Parity trap, ties: ``jax.lax.top_k`` puts the lower index first among
+    equal values (at init, pad experts and underflowed experts tie at
+    probability 0); ``torch.topk`` promises no order, so this takes the
+    first k of a stable descending sort."""
+    logits = (xc @ router.to(COMPUTE_DTYPE)).float()
+    if E > m.n_experts:
+        pad = torch.arange(E, device=xc.device) >= m.n_experts
+        logits = torch.where(pad, -1e30, logits)
+    probs = torch.softmax(logits, dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, eidx = vals[..., :m.top_k], idx[..., :m.top_k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate, eidx
+
+
+def _aux(probs: torch.Tensor, eidx: torch.Tensor, m: MoECfg,
+         E: int) -> torch.Tensor:
+    """The Switch load-balance loss, E * sum_e f_e * p_e, over all tokens."""
+    me = probs.reshape(-1, E).mean(dim=0)
+    ce = F.one_hot(eidx, E).float().sum(dim=-2).reshape(-1, E).mean(dim=0)
+    return (me * ce).sum() * m.n_experts
+
+
+def _shared(p: dict, xc: torch.Tensor) -> torch.Tensor:
+    s = p["shared"]
+    g = L.silu(xc @ s["wg"].to(COMPUTE_DTYPE))
+    return (g * (xc @ s["wu"].to(COMPUTE_DTYPE))) @ s["wd"].to(COMPUTE_DTYPE)
+
+
+def _positions(oh: torch.Tensor) -> torch.Tensor:
+    """Each (token, slot)'s place in its expert's buffer.  Parity trap,
+    slot order: an int32 cumsum over (token, slot) pairs in token-major,
+    then slot-major order.  ``oh``: (..., N*k, E) int32 one-hot."""
+    pos = torch.cumsum(oh, dim=-2, dtype=torch.int32) - 1
+    return (pos * oh).sum(-1, dtype=torch.int32)
+
+
+def _moe_decode_einsum(p: dict, x: torch.Tensor, m: MoECfg, E: int):
+    """The decode path: one-hot einsum dispatch over ONE global token
+    group, dropless at decode token counts (capacity
+    ``min(N, max(int(N k / E * 2.0), 16))``)."""
+    B, T, D = x.shape
+    N, k = B * T, m.top_k
+    xf = x.reshape(N, D).to(COMPUTE_DTYPE)
+    probs, gate, eidx = _route(xf, p["router"], m, E)        # (N, k)
+    C = min(N, max(int(N * k / m.n_experts * 2.0), 16))
+    oh = F.one_hot(eidx, E).to(torch.int32)                  # (N, k, E)
+    pos = _positions(oh.reshape(N * k, E)).reshape(N, k)
+    keep = pos < C
+    # dispatch mask (N, k, E, C), combined over k: (N, E, C)
+    slot = F.one_hot(torch.where(keep, pos, C - 1).long(), C).to(torch.int32)
+    disp = oh[..., None] * slot[:, :, None, :]
+    disp = disp * keep[:, :, None, None].to(torch.int32)
+    # parity trap, dtypes: the gated combine weights are f32 until the
+    # combine's product casts them
+    gated = (disp * gate[:, :, None, None]).sum(1)           # (N, E, C) f32
+    disp_b = disp.sum(1).to(COMPUTE_DTYPE)                   # (N, E, C)
+    buf = torch.einsum("nec,nd->ecd", disp_b, xf)
+    h = L.silu(torch.einsum("ecd,edf->ecf", buf,
+                            p["wg"].to(COMPUTE_DTYPE)))
+    h = h * torch.einsum("ecd,edf->ecf", buf, p["wu"].to(COMPUTE_DTYPE))
+    out_buf = torch.einsum("ecf,efd->ecd", h, p["wd"].to(COMPUTE_DTYPE))
+    out = torch.einsum("nec,ecd->nd", gated.to(COMPUTE_DTYPE), out_buf)
+    aux = _aux(probs, eidx, m, E)
+    if m.n_shared:
+        out = out + _shared(p, xf)
+    return out.reshape(B, T, D).to(x.dtype), aux.float()
+
+
+def moe_ffn(p: dict, x: torch.Tensor, m: MoECfg,
+            dropless: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, T, D) -> (out (B, T, D), aux load-balance loss scalar).
+
+    ``p`` holds one layer's ``router``, ``wg``, ``wu``, ``wd`` and
+    ``shared.*``, cast to the compute dtype here.  ``dropless``
+    (inference): capacity widened to ``min(T, max(C, 16))``, so no token
+    drops at small and decode batch sizes; a dropless call of at most
+    ``_DECODE_EINSUM_MAX_TOKENS`` tokens takes the einsum dispatch.
+    Parity trap, capacity: ``C = max(int(T k / E * capacity_factor), 1)``
+    a sequence here, ``min(N, max(int(N k / E * 2), 16))`` over all N
+    tokens on the einsum path; so prompts of 300-1100 tokens take both.
+    """
+    B, T, D = x.shape
+    E = p["router"].shape[1]
+    if dropless and _EINSUM_DECODE and B * T <= _DECODE_EINSUM_MAX_TOKENS:
+        return _moe_decode_einsum(p, x, m, E)
+    k = m.top_k
+    C = max(int(T * k / m.n_experts * m.capacity_factor), 1)
+    if dropless:
+        C = min(T, max(C, 16))
+    xc = x.to(COMPUTE_DTYPE)
+    probs, gate, eidx = _route(xc, p["router"], m, E)       # (B, T, k)
+    aux = _aux(probs, eidx, m, E)
+
+    # capacity assignment, a group a sequence
+    oh = F.one_hot(eidx, E).to(torch.int32)                  # (B, T, k, E)
+    pos = _positions(oh.reshape(B, T * k, E)).reshape(B, T, k)
+    keep = pos < C
+
+    # dispatch: scatter tokens into (B, E, C, D) buffers.  Dropped
+    # tokens add zeros at slot C - 1, so the accumulating scatter is
+    # exact in any order
+    bidx = torch.arange(B, device=x.device)[:, None, None].expand(B, T, k)
+    pos_c = torch.where(keep, pos, C - 1).long()
+    contrib = torch.where(keep[..., None], xc[:, :, None, :].expand(
+        B, T, k, D), 0.0).to(COMPUTE_DTYPE)
+    buf = torch.zeros((B, E, C, D), dtype=COMPUTE_DTYPE, device=x.device)
+    buf.index_put_((bidx, eidx, pos_c), contrib, accumulate=True)
+
+    # expert products, batched over the experts
+    h = L.silu(torch.einsum("becd,edf->becf", buf,
+                            p["wg"].to(COMPUTE_DTYPE)))
+    h = h * torch.einsum("becd,edf->becf", buf, p["wu"].to(COMPUTE_DTYPE))
+    out_buf = torch.einsum("becf,efd->becd", h, p["wd"].to(COMPUTE_DTYPE))
+
+    # combine: gather back, gate-weighted sum over k (the gates cast to
+    # the compute dtype first, as in JAX)
+    gathered = out_buf[bidx, eidx, pos_c]                    # (B, T, k, D)
+    gathered = torch.where(keep[..., None], gathered, 0.0).to(COMPUTE_DTYPE)
+    out = (gathered * gate[..., None].to(COMPUTE_DTYPE)).sum(dim=2)
+    if m.n_shared:
+        out = out + _shared(p, xc)
+    return out.to(x.dtype), aux.float()

@@ -128,9 +128,7 @@ class TimeMix(L.ParamGroup):
             heads(decay), bonus=bonus, state=s0, chunk=cfg.ssm.chunk,
             impl=impl)
         o = o.reshape(B, H, T, hd).transpose(1, 2).reshape(B, T, D)
-        # jax.nn.silu's steps, x * sigmoid(x), each rounded to bf16
-        # (torch's fused silu rounds once)
-        o = L.groupnorm(o, H, eps=64e-5) * (g * torch.sigmoid(g))
+        o = L.groupnorm(o, H, eps=64e-5) * L.silu(g)
         out = (o.to(COMPUTE_DTYPE) @ w("wo")).to(x.dtype)
         new_state = None
         if state is not None:

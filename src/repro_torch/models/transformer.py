@@ -1,25 +1,28 @@
 """Decoder-only transformer, the dense/GQA family (tinyllama, minitron,
-granite, stablelm) and the VLM backbone (paligemma prefix-LM); port of
-``repro.models.transformer``.  The MoE and MLA branches of the JAX model
-(``cfg.moe``, ``cfg.mla``, ``lead_layers``) are not ported: asking for
-them raises naming ROADMAP A.11 (MoE and MLA families).
+granite, stablelm), the MoE family (qwen2-moe) and the VLM backbone
+(paligemma prefix-LM); port of ``repro.models.transformer``.  The MLA
+branch of the JAX model (``cfg.mla``) is not ported: asking for it
+raises naming ROADMAP A.11 (MLA family).
 
 The parameters are a :class:`Transformer` module whose names follow the
 JAX parameter tree (``embed``, ``layers.ln1``, ``layers.attn.wq``,
-``layers.mlp.wg``, ``ln_f``, ``head``, ``img_proj``), each layer
-parameter stacked over the layers as in JAX, so a converted JAX tree
-loads one to one (``convert.transformer_params_from_arrays``).  A Python
-loop over the layers takes the place of ``_scan_layers``; remat has no
-counterpart (serving does not need it).
+``layers.mlp.wg`` or ``layers.moe.router``, ``lead_layers.*``, ``ln_f``,
+``head``, ``img_proj``), each layer parameter stacked over the layers as
+in JAX, so a converted JAX tree loads one to one
+(``convert.transformer_params_from_arrays``).  Python loops over the
+lead layers and the layers take the place of ``_scan_layers``; remat has
+no counterpart (serving does not need it).
 
-Modes, as in JAX (the attention is the same in all three; ``mode``
-selects nothing else in the dense family):
-  train   -- causal forward, next-token CE loss (``loss_fn``)
-  prefill -- causal forward, filling a KV cache when one is given
-  decode  -- T new tokens against an existing cache
+Modes, as in JAX (the attention is the same in all three):
+  train   -- causal forward, next-token CE loss (``loss_fn``); the MoE
+             layers drop tokens past their capacity
+  prefill -- causal forward, filling a KV cache when one is given; MoE
+             dropless
+  decode  -- T new tokens against an existing cache; MoE dropless
 
 The KV cache is ``{"layers": {"k", "v": (L, B, S, Hkv, Dh) bf16, "len":
-int}}``: one host length for all layers, where JAX stacks an int32
+int}}`` (and ``"lead"`` alike for the dense lead layers of an MoE
+config): one host length for all layers, where JAX stacks an int32
 ``len`` per layer (see ``layers.attention_block``).
 """
 from __future__ import annotations
@@ -30,37 +33,52 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.pspec import ParamDef, stack_tree
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import AttnShape, COMPUTE_DTYPE
 
 MODES = ("train", "prefill", "decode")
-NOT_PORTED = "ROADMAP A.11 (MoE and MLA families)"
+NOT_PORTED = "ROADMAP A.11 (MLA family)"
 
 
 def _attn_shape(cfg: ArchConfig) -> AttnShape:
     return AttnShape(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
 
 
-def _dense_only(cfg: ArchConfig) -> None:
-    if cfg.moe is not None or cfg.mla is not None:
+def _no_mla(cfg: ArchConfig) -> None:
+    if cfg.mla is not None:
         raise NotImplementedError(
-            f"{cfg.arch_id}: the MoE / MLA transformer is not ported yet: "
+            f"{cfg.arch_id}: the MLA transformer is not ported yet: "
             f"{NOT_PORTED}")
 
 
-def _layer_defs(cfg: ArchConfig) -> dict:
-    return {"ln1": L.rmsnorm_def(cfg.d_model),
-            "ln2": L.rmsnorm_def(cfg.d_model),
-            "attn": L.attention_defs(cfg.d_model, _attn_shape(cfg)),
-            "mlp": L.mlp_defs(cfg.d_model, cfg.d_ff, cfg.act)}
+def _layer_defs(cfg: ArchConfig, dense_ffn_width: int | None = None) -> dict:
+    d: dict = {"ln1": L.rmsnorm_def(cfg.d_model),
+               "ln2": L.rmsnorm_def(cfg.d_model),
+               "attn": L.attention_defs(cfg.d_model, _attn_shape(cfg))}
+    if dense_ffn_width is not None:
+        d["mlp"] = L.mlp_defs(cfg.d_model, dense_ffn_width, cfg.act)
+    elif cfg.moe is not None:
+        d["moe"] = moe_lib.moe_defs(cfg.d_model, cfg.moe)
+    else:
+        d["mlp"] = L.mlp_defs(cfg.d_model, cfg.d_ff, cfg.act)
+    return d
+
+
+def _n_dense_lead(cfg: ArchConfig) -> int:
+    return cfg.moe.first_dense_layers if cfg.moe else 0
 
 
 def param_defs(cfg: ArchConfig) -> dict:
-    _dense_only(cfg)
+    _no_mla(cfg)
+    n_lead = _n_dense_lead(cfg)
     defs: dict = {
         "embed": L.embed_defs(cfg.vocab, cfg.d_model),
-        "layers": stack_tree(_layer_defs(cfg), cfg.n_layers),
+        "layers": stack_tree(_layer_defs(cfg), cfg.n_layers - n_lead),
         "ln_f": L.rmsnorm_def(cfg.d_model),
     }
+    if n_lead:
+        defs["lead_layers"] = stack_tree(
+            _layer_defs(cfg, dense_ffn_width=cfg.moe.d_ff_dense), n_lead)
     if not cfg.tie_embeddings:
         defs["head"] = ParamDef((cfg.d_model, cfg.vocab), ("embed", "vocab"))
     if cfg.n_image_tokens:
@@ -80,13 +98,26 @@ def _embed_scale(cfg: ArchConfig, dtype: torch.dtype) -> float | None:
     return None
 
 
+class _MoE(nn.Module):
+    """One stack's ``moe.*`` parameters: the router, the experts and the
+    shared experts."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name in ("router", "wg", "wu", "wd"):
+            self.register_parameter(name, nn.Parameter(tree[name]))
+        self.shared = (L.ParamGroup(tree["shared"]) if "shared" in tree
+                       else None)
+
+
 class _Layers(nn.Module):
     def __init__(self, tree: dict):
         super().__init__()
         self.ln1 = nn.Parameter(tree["ln1"])
         self.ln2 = nn.Parameter(tree["ln2"])
         self.attn = L.ParamGroup(tree["attn"])
-        self.mlp = L.ParamGroup(tree["mlp"])
+        self.mlp = L.ParamGroup(tree["mlp"]) if "mlp" in tree else None
+        self.moe = _MoE(tree["moe"]) if "moe" in tree else None
 
 
 class Transformer(L.LMModule):
@@ -95,17 +126,49 @@ class Transformer(L.LMModule):
     Built from a tree of tensors shaped as :func:`param_defs` (the
     tensors become the parameters, not copies).  ``forward(batch, mode,
     cache)`` returns ``(logits (B, T, V) bf16, new_cache, aux)`` like the
-    JAX ``forward``; ``aux`` is 0 (no router loss in the dense family).
+    JAX ``forward``; ``aux`` is the MoE layers' summed load-balance loss
+    (0 in the dense family).
     """
 
     def __init__(self, cfg: ArchConfig, tree: dict):
         super().__init__(cfg, param_defs(cfg), tree)
         self.embed = nn.Parameter(tree["embed"])
         self.layers = _Layers(tree["layers"])
+        self.lead_layers = (_Layers(tree["lead_layers"])
+                            if "lead_layers" in tree else None)
         self.ln_f = nn.Parameter(tree["ln_f"])
         self.head = nn.Parameter(tree["head"]) if "head" in tree else None
         self.img_proj = (nn.Parameter(tree["img_proj"])
                          if "img_proj" in tree else None)
+
+    def _block(self, lay: _Layers, i: int, x: torch.Tensor,
+               cache: dict | None, *, mode: str, prefix_len: int):
+        """Layer ``i`` of the stack ``lay``: attention, then the dense MLP
+        or the MoE FFN (dropless unless training); returns ``(x, aux)``."""
+        cfg = self.cfg
+        attn = {n: self.bf16(lay.attn, n)[i]
+                for n in ("wq", "wk", "wv", "wo")}
+        a, _ = L.attention_block(
+            attn, L.rmsnorm(lay.ln1[i], x, cfg.norm_eps),
+            shape=_attn_shape(cfg), rope_theta=cfg.rope_theta,
+            prefix_len=prefix_len, window=cfg.sliding_window, cache=cache)
+        x = x + a
+        h = L.rmsnorm(lay.ln2[i], x, cfg.norm_eps)
+        if lay.moe is not None:
+            mo = lay.moe
+            # the router and the shared experts through the kept bf16
+            # copies; the experts in f32, cast per call (no copy kept)
+            p = {"router": self.bf16(mo, "router")[i],
+                 "wg": mo.wg[i], "wu": mo.wu[i], "wd": mo.wd[i]}
+            if mo.shared is not None:
+                p["shared"] = {n: self.bf16(mo.shared, n)[i]
+                               for n in ("wg", "wu", "wd")}
+            out, aux = moe_lib.moe_ffn(p, h, cfg.moe,
+                                       dropless=mode != "train")
+            return x + out, aux
+        ffn = {n: self.bf16(lay.mlp, n)[i] for n, _ in
+               lay.mlp.named_parameters()}
+        return x + L.mlp(ffn, h, cfg.act), None
 
     def forward(self, batch: dict, *, mode: str = "train",
                 cache: dict | None = None):
@@ -122,35 +185,30 @@ class Transformer(L.LMModule):
         scale = _embed_scale(cfg, x.dtype)
         if scale is not None:
             x = x * scale
-        lay = self.layers
-        shape = _attn_shape(cfg)
-        kv = None if cache is None else cache["layers"]
-        for i in range(cfg.n_layers):
-            layer_cache = None if kv is None else {
-                "k": kv["k"][i], "v": kv["v"][i], "len": kv["len"]}
-            attn = {n: self.bf16(lay.attn, n)[i]
-                    for n in ("wq", "wk", "wv", "wo")}
-            a, _ = L.attention_block(
-                attn, L.rmsnorm(lay.ln1[i], x, cfg.norm_eps), shape=shape,
-                rope_theta=cfg.rope_theta, prefix_len=prefix_len,
-                window=cfg.sliding_window, cache=layer_cache)
-            x = x + a
-            ffn = {n: self.bf16(lay.mlp, n)[i] for n, _ in
-                   lay.mlp.named_parameters()}
-            x = x + L.mlp(ffn, L.rmsnorm(lay.ln2[i], x, cfg.norm_eps),
-                          cfg.act)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        new_cache = None if cache is None else {}
+        stacks = [("layers", self.layers)]
+        if self.lead_layers is not None:
+            stacks.insert(0, ("lead", self.lead_layers))
+        for key, lay in stacks:
+            kv = None if cache is None else cache[key]
+            for i in range(lay.ln1.shape[0]):
+                layer_cache = None if kv is None else {
+                    "k": kv["k"][i], "v": kv["v"][i], "len": kv["len"]}
+                x, a = self._block(lay, i, x, layer_cache, mode=mode,
+                                   prefix_len=prefix_len)
+                if a is not None:
+                    aux = aux + a
+            if kv is not None:
+                # every layer wrote [len, len + T) of its buffers in place
+                new_cache[key] = {"k": kv["k"], "v": kv["v"],
+                                  "len": kv["len"] + x.shape[1]}
         x = L.rmsnorm(self.ln_f, x, cfg.norm_eps)
         if cfg.tie_embeddings:
             lg = L.logits(self.bf16(self, "embed"), x, transpose=True)
         else:
             lg = L.logits(self.bf16(self, "head"), x, transpose=False)
-        new_cache = None
-        if kv is not None:
-            # every layer wrote [len, len + T) of its own buffers in place
-            new_cache = {"layers": {"k": kv["k"], "v": kv["v"],
-                                    "len": kv["len"] + x.shape[1]}}
-        return lg, new_cache, torch.zeros((), dtype=torch.float32,
-                                          device=x.device)
+        return lg, new_cache, aux
 
 
 def forward(cfg: ArchConfig, params: Transformer, batch: dict, *,
@@ -163,21 +221,29 @@ def forward(cfg: ArchConfig, params: Transformer, batch: dict, *,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: "str | torch.device | None" = None) -> dict:
-    """Stacked (L, batch, max_len, Hkv, Dh) bf16 KV buffers, length 0.
-    ``device=None`` means the card, as at every entry point."""
+    """Stacked (L, batch, max_len, Hkv, Dh) bf16 KV buffers, length 0
+    (``"lead"`` alike for the dense lead layers).  ``device=None`` means
+    the card, as at every entry point."""
     from repro_torch.device import resolve_device
-    _dense_only(cfg)
+    _no_mla(cfg)
     dev = resolve_device(device)
-    sh = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"layers": {
-        "k": torch.zeros(sh, dtype=L.COMPUTE_DTYPE, device=dev),
-        "v": torch.zeros(sh, dtype=L.COMPUTE_DTYPE, device=dev),
-        "len": 0}}
+
+    def one(n):
+        sh = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(sh, dtype=L.COMPUTE_DTYPE, device=dev),
+                "v": torch.zeros(sh, dtype=L.COMPUTE_DTYPE, device=dev),
+                "len": 0}
+
+    n_lead = _n_dense_lead(cfg)
+    out = {"layers": one(cfg.n_layers - n_lead)}
+    if n_lead:
+        out["lead"] = one(n_lead)
+    return out
 
 
 def loss_fn(cfg: ArchConfig, params: Transformer,
             batch: dict) -> torch.Tensor:
-    lg, _, _ = forward(cfg, params, batch, mode="train")
+    lg, _, aux = forward(cfg, params, batch, mode="train")
     labels = batch["labels"]
     if cfg.n_image_tokens and "img_embeds" in batch:
         # loss only over text positions
@@ -185,5 +251,8 @@ def loss_fn(cfg: ArchConfig, params: Transformer,
                          dtype=labels.dtype, device=labels.device)
         labels = torch.cat([pad, labels], dim=1)
     mask = (labels >= 0).float()
-    return L.cross_entropy(lg[:, :-1], torch.clamp(labels[:, 1:], min=0),
+    loss = L.cross_entropy(lg[:, :-1], torch.clamp(labels[:, 1:], min=0),
                            mask[:, 1:])
+    if cfg.moe is not None:
+        loss = loss + cfg.moe.router_aux_weight * aux / cfg.n_layers
+    return loss

@@ -1,10 +1,12 @@
 """Nestable wall-clock spans that line up with device traces (a port of
 ``repro.obs.trace``'s ``span``).
 
-``span("tick/dispatch")`` times a host-side region and opens a
-``torch.profiler.record_function`` range of the same name, so a
-``torch.profiler`` trace attributes the device work the region launched
-to ``tick/admit``, ``tick/pack``, ``tick/dispatch`` or ``tick/fetch``.
+``span("tick/dispatch")`` times a host-side region and, while a
+``torch.profiler`` records, opens a ``torch.profiler.record_function``
+range of the same name, so the trace attributes the device work the
+region launched to ``tick/admit``, ``tick/pack``, ``tick/dispatch`` or
+``tick/fetch``.  With no profiler running the range is not opened: it
+would record nothing and costs more host time than the rest of the span.
 Spans nest: a span entered inside another is recorded under it;
 :func:`span_tree` renders the accumulated hierarchy as the JAX package
 does and :func:`span_totals` reads the calls and seconds per path.
@@ -99,15 +101,19 @@ class _Span:
         parent = _STATE.stack[-1] if _STATE.stack else _STATE.root
         self._node = parent.child(self.name)
         _STATE.stack.append(self._node)
-        self._range = torch.profiler.record_function(self.name)
-        self._range.__enter__()
+        # PyTorch's own fast check of a running profiler (dynamo and
+        # inductor read it the same way)
+        if torch.autograd.profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, *exc):
         dt = time.perf_counter() - self._t0
-        self._range.__exit__(*exc)
-        self._range = None
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
         node = self._node
         node.count += 1
         node.total_s += dt

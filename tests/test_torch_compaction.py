@@ -392,6 +392,37 @@ def test_survivor_mode_equals_plain_compacted_hop_on_card(card, k, W):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 4, 41])
+def test_dense_hop_counts_its_done_flows_on_card(card, k):
+    """``survivors_out`` on a dense hop: the kernel takes the flows done
+    after the hop (those done before it among them) off what the word
+    held, as the plain hop does, and writes the same carry; a
+    survivor-mode launch refuses the word."""
+    from repro_torch.kernels import engine_hop as eh
+    S = 30
+    pkts, dev, carry = _survivor_inputs(card, 5003, 65, k, S)
+    B = pkts.shape[0]
+    got, plain = (tuple(t.clone() for t in carry) for _ in range(2))
+    left = torch.full((2,), B, dtype=torch.int32, device=card)
+    eh.engine_hop_kernel(pkts, got, dev, 1, n_subtrees=S,
+                         survivors_out=left[0])
+    eh.engine_hop_plain(pkts, plain, dev, 1, n_subtrees=S,
+                        survivors_out=left[1])
+    torch.cuda.synchronize()
+    for name, a, b in zip(("sid", "done", "labels", "recircs", "exit_p"),
+                          got, plain):
+        assert torch.equal(a, b), name
+    want = B - int(got[1].sum())
+    assert 0 <= want <= B - int(carry[1].sum())
+    assert left.tolist() == [want, want]
+    rows, n_active = compact_perm(carry[1])
+    for hop in (eh.engine_hop_kernel, eh.engine_hop_plain):
+        with pytest.raises(ValueError, match="dense hop only"):
+            hop(pkts, tuple(t.clone() for t in carry), dev, 1, n_subtrees=S,
+                rows=rows, n_active=n_active, survivors_out=left[0])
+
+
+@pytest.mark.gpu
 def test_survivor_mode_out_of_range_inputs_on_card(card):
     """A survivor count above B reads as B, so every position holds a
     flow, done ones too; a row outside ``[0, B)`` leaves its position

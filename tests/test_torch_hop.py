@@ -465,6 +465,32 @@ def test_walk_buffer_is_the_fetch_layout():
     assert counted[-P:][0] == B
 
 
+def test_plain_hop_counts_its_done_flows():
+    """The plain hop's ``survivors_out`` loses the flows done after a
+    dense hop, which ``partition_walk(count_survivors=True)`` reads for
+    the survivor counts; a compacted hop refuses it."""
+    eng, wp = _small_engine()
+    x = torch.from_numpy(wp)
+    B, P = x.shape[0], eng.tables.n_partitions
+    _, carry, _ = inf._walk_buffers(B, P, eng.tables.dev.slot_op.shape[1],
+                                    False, x.device)
+    left = torch.full((P,), B, dtype=torch.int32)
+    done = []
+    for p in range(P):
+        engine_hop_plain(x[:, p], carry, eng.tables.dev, p,
+                         n_subtrees=eng.tables.n_subtrees,
+                         survivors_out=left[p])
+        done.append(int(carry[1].sum()))
+    assert done == sorted(done) and 0 < done[-1] <= B
+    assert left.tolist() == [B - d for d in done]
+    with pytest.raises(ValueError, match="dense hop only"):
+        engine_hop_plain(x[:, 1], carry, eng.tables.dev, 1,
+                         n_subtrees=eng.tables.n_subtrees,
+                         rows=torch.arange(B, dtype=torch.int32),
+                         n_active=torch.tensor([B], dtype=torch.int32),
+                         survivors_out=left[0])
+
+
 def test_results_own_their_arrays():
     """Two consecutive runs: the first result's arrays stay as they were
     and share no memory with the second's."""

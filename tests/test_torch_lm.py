@@ -507,21 +507,26 @@ def test_init_params_follows_the_init_rules():
 
 
 def test_registry_names_what_is_not_ported():
-    """The registry serves RWKV6 and the five dense/VLM transformers; the
-    MoE, Whisper and Zamba2 configs and families still name A.11."""
+    """The registry serves RWKV6, Zamba2, the five dense/VLM transformers
+    and Qwen's MoE; the MLA (deepseek-v2-236b) and Whisper configs and
+    families still name A.11."""
     assert sorted(ARCHS) == sorted([
         "rwkv6-1.6b", "tinyllama-1.1b", "granite-3-2b", "stablelm-3b",
-        "minitron-8b", "paligemma-3b"])
-    for arch in ("qwen2-moe-a2.7b", "deepseek-v2-236b", "whisper-medium",
-                 "zamba2-2.7b"):
+        "minitron-8b", "paligemma-3b", "zamba2-2.7b", "qwen2-moe-a2.7b"])
+    for arch in ("deepseek-v2-236b", "whisper-medium"):
         with pytest.raises(KeyError, match="A.11"):
             get_arch(arch)
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("nope")
     import dataclasses
-    from repro_torch.configs.base import Family
-    for family in (Family.MOE, Family.AUDIO, Family.HYBRID):
-        cfg = dataclasses.replace(get_arch("rwkv6-1.6b"), family=family)
+    from repro_torch.configs.base import Family, MLACfg, MoECfg
+    base = get_arch("rwkv6-1.6b")
+    audio = dataclasses.replace(base, family=Family.AUDIO)
+    mla = dataclasses.replace(base, family=Family.MOE,
+                              moe=MoECfg(n_experts=8, top_k=2,
+                                         d_ff_expert=64),
+                              mla=MLACfg(32, 16, 16, 8, 16))
+    for cfg in (audio, mla):
         with pytest.raises(NotImplementedError, match="A.11"):
             model_zoo.get_model(cfg)
 
@@ -634,4 +639,4 @@ def test_launch_serve_cli_completes_on_cpu(capsys):
     assert stats.completed == 3 and max(stats.slot_occupancy) <= 2
     assert "completed 3/3 requests" in capsys.readouterr().out
     with pytest.raises(SystemExit):        # not ported: not a choice
-        serve.main(["--arch", "zamba2-2.7b", "--device", "cpu"])
+        serve.main(["--arch", "whisper-medium", "--device", "cpu"])

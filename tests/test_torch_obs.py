@@ -353,6 +353,53 @@ def test_span_nesting_and_tree():
     assert obs.span_tree() == "(no spans recorded)"
 
 
+def test_span_opens_its_profiler_range_only_while_profiling():
+    """A span is timed either way; its ``record_function`` range exists
+    only inside a running ``torch.profiler``, which still attributes to
+    it what ran inside."""
+    import torch
+    prev = obs.set_enabled(True)
+    obs.reset_spans()
+    try:
+        with obs.span("probe/off") as sp:
+            assert sp._range is None
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            with obs.span("probe/on") as sp:
+                assert sp._range is not None
+                torch.ones(4).sum()
+        totals = obs.span_totals()
+    finally:
+        obs.set_enabled(prev)
+        obs.reset_spans()
+    names = {e.key for e in prof.key_averages()}
+    assert "probe/on" in names and "probe/off" not in names
+    assert totals["probe/off"]["calls"] == totals["probe/on"]["calls"] == 1
+
+
+def test_hop_counters_follow_the_installed_registry(jx):
+    """``Engine.run`` keeps its hop counters per registry: each registry
+    installed in turn gets its own counts, none leak into another."""
+    eng, wp = jx.port, jx.wp[:64]
+    regs = [MetricRegistry(), MetricRegistry()]
+    prev = obs.get_registry()
+    try:
+        for reg, runs in zip(regs, (1, 2)):
+            obs.set_registry(reg)
+            for _ in range(runs):
+                res = eng.run(wp, with_trace=False)
+    finally:
+        obs.set_registry(prev)
+    ex = res.exit_partition
+    want = [int(np.count_nonzero((ex < 0) | (ex >= p)))
+            for p in range(eng.tables.n_partitions)]
+    for reg, runs in zip(regs, (1, 2)):
+        got = [reg.counter("engine_hop_survivors_total",
+                           labels={"hop": str(p)}).value
+               for p in range(eng.tables.n_partitions)]
+        assert got == [runs * w for w in want]
+
+
 @pytest.fixture(scope="module")
 def jobs():
     """The JAX package's ``repro.obs``."""

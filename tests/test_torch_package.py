@@ -72,6 +72,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
         "repro_torch.core.inference, repro_torch.flows.windows, "
         "repro_torch.kernels.ops, repro_torch.kernels.tick_step, "
         "repro_torch.kernels.chunk_scan, repro_torch.models.rwkv, "
+        "repro_torch.models.mamba2, repro_torch.models.moe, "
+        "repro_torch.models.transformer, "
         "repro_torch.models.model_zoo, repro_torch.serve.batching, "
         "repro_torch.launch.serve, repro_torch.obs, repro_torch.serve\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in "

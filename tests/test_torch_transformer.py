@@ -471,15 +471,20 @@ def test_full_width_param_count_equals_jax(jx, arch):
 
 
 def test_moe_and_mla_name_their_roadmap_item():
+    """MoE is ported (the ``cfg.moe`` branch builds); MLA, alone or with
+    MoE, still names its ROADMAP item, in the defs and in the zoo."""
     base = get_arch("tinyllama-1.1b")
     moe = dataclasses.replace(base, moe=MoECfg(n_experts=8, top_k=2,
                                                d_ff_expert=64))
     mla = dataclasses.replace(base, mla=MLACfg(32, 16, 16, 8, 16))
-    for cfg in (moe, mla):
+    assert "moe" in transformer.param_defs(moe)["layers"]
+    assert model_zoo.get_model(dataclasses.replace(
+        moe, family=Family.MOE)).build is transformer.Transformer
+    for cfg in (mla, dataclasses.replace(moe, mla=mla.mla)):
         with pytest.raises(NotImplementedError, match="A.11"):
             transformer.param_defs(cfg)
-    with pytest.raises(NotImplementedError, match="A.11"):
-        model_zoo.get_model(dataclasses.replace(moe, family=Family.MOE))
+        with pytest.raises(NotImplementedError, match="A.11"):
+            model_zoo.get_model(dataclasses.replace(cfg, family=Family.MOE))
     with pytest.raises(ValueError, match="mode"):
         _reduced_model("tinyllama-1.1b")[1](
             {"tokens": torch.zeros((1, 2), dtype=torch.int32)},
