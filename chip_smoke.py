@@ -204,6 +204,40 @@ exits nonzero; nothing is caught and passed over):
    0.05 x max |logit| of the CPU at f32 products, with the share of
    routing choices that differ; tokens/s, tick p50/p99, peak memory and
    a traced decode tick.  No hand-written kernel;
+10e. lm_mla -- ``deepseek-v2-236b`` at its published widths (D = 5,120,
+   128 heads; MLA q_lora 1,536, kv_lora 512, qk_nope 128, qk_rope 64,
+   v_head 128; 160 routed experts top-6 of d_ff 1,536, 2 shared, the
+   dense lead layer of d_ff 12,288; vocab 102,400) cut in layers to the
+   lead layer and 3 of the 59 MoE layers (13,302,912,000 random f32
+   parameters, 53.2 GB; the uncut config's 235,741,434,880 counted from
+   the defs) behind the same batcher and traffic: all complete, every
+   layer of a prefill in MLA's cached direct form and of a decode step in
+   its absorbed form (counted), tokens == isolated decode; one
+   full-width MLA layer's absorbed form within 0.01 x max |o| of its
+   cached direct form; that layer in each of its three forms and the
+   model cut to 2 layers (lead + one MoE layer) on the card within 0.05
+   x max |·| of the CPU at f32 products on 16 tokens; the teacher-forced
+   decode at 4 layers printed; tokens/s, tick p50/p99, peak memory, the
+   latent cache's bytes a slot beside plain MHA's, a traced decode tick.
+   No hand-written kernel: JAX runs MLA on XLA products;
+10f. lm_audio -- ``whisper-medium`` uncut (24 encoder and 24 decoder
+   layers, D = 1,024, 16 heads of 64, d_ff 4,096, vocab 51,865;
+   824,986,624 random f32 parameters) on JAX's encoder-decoder path,
+   ``serve_step``'s prefill with frames then greedy decode steps (the
+   batcher has no audio path in either package): 8 clips of 1,500 frame
+   embeddings from the seed (the conv frontend is a stub), a 4-token
+   prompt and 64 greedy tokens each, ``max_len`` 448, at batch 8 and at
+   batch 1 a clip; encoder ms, time to first token, decode step p50 and
+   tokens/s, peak memory, a traced batch-8 decode step, the share of
+   batch-8 tokens equal to batch-1 tokens (reported: a batched GEMM
+   rounds differently, so the first logits of both batches are printed
+   with bf16 and with f32 products, beside how far a one-ulp nudge of
+   the frames moves the f32 logits at 24 + 24 and at 2 + 2 layers);
+   2 encoder + 2 decoder layers on the
+   card within 0.05 x max |logit| of the CPU at f32 products (train,
+   prefill, two decode steps); ``make_cache`` then decode within the
+   same bound of a prefill with frames then decode.  No hand-written
+   kernel;
 11. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -212,6 +246,7 @@ no CUDA card or when run outside a checkout of the repository.
 """
 from __future__ import annotations
 
+import gc
 import json
 import pathlib
 import statistics
@@ -277,6 +312,16 @@ LM_HYBRID_ARCH = "zamba2-2.7b"      # phase lm_hybrid: the hybrid family
 LONG_PROMPT, LONG_MAX_LEN = 9000, 16384  # its long context: > 2 x window
 WINDOW_ATOL = 1e-5         # tests/test_perf_layouts.py, the window slice
 LM_MOE_ARCH = "qwen2-moe-a2.7b"     # phase lm_moe: the MoE family
+LM_MLA_ARCH = "deepseek-v2-236b"    # phase lm_mla: MLA (and MoE)
+LM_MLA_LAYERS = 4          # the dense lead layer and 3 of the 59 MoE
+#                           layers: 53.2 GB of f32 parameters (5: 69.1)
+LM_MLA_TOKENS = 16         # tokens of the MLA card-against-CPU gates
+MLA_FORMS_TOL = 0.01       # x max |o|: tests/test_models.py, absorbed
+#                           against direct
+LM_AUDIO_ARCH = "whisper-medium"    # phase lm_audio: the encoder-decoder
+AUDIO_CLIPS, AUDIO_FRAMES = 8, 1500  # 30 s clips after the (stub) frontend
+AUDIO_PROMPT, AUDIO_NEW = 4, 64     # decoder prompt, greedy tokens a clip
+AUDIO_MAX_LEN = 448        # Whisper's decoder limit
 SCAN_KERNELS = {"chunked": 3, "step": 1}  # chunk_scan's device kernels a
 #                           call by design: C >= 2 (prep, state pass,
 #                           output) and C == 1 (one step)
@@ -1074,14 +1119,19 @@ def retree(model, leaf) -> dict:
 
 
 def cut_layers(model, n: int):
-    """The config and model of an LM module's first ``n`` layers (the
-    stacks ``layers.*`` or ``mamba_layers.*``), full width, sharing its
-    parameters."""
+    """The config and model of an LM module's first ``n`` layers, full
+    width, sharing its parameters: the stacks ``layers.*`` (after the
+    dense lead layers of an MoE config, which stay), ``mamba_layers.*``,
+    and Whisper's ``enc_layers.*`` and ``dec_layers.*``."""
     import dataclasses
-    cfg = dataclasses.replace(model.cfg, n_layers=n)
+    cfg = dataclasses.replace(model.cfg, n_layers=n,
+                              enc_layers=min(model.cfg.enc_layers, n))
+    lead = cfg.moe.first_dense_layers if cfg.moe else 0
+    keep = {"layers": n - lead, "mamba_layers": n, "enc_layers": n,
+            "dec_layers": n}
     return cfg, type(model)(cfg, retree(
-        model, lambda name, t: t[:n] if name.startswith(
-            ("layers.", "mamba_layers.")) else t))
+        model, lambda name, t: t[:keep[name.split(".")[0]]]
+        if name.split(".")[0] in keep else t))
 
 
 class products_in:
@@ -1093,8 +1143,10 @@ class products_in:
 
     @staticmethod
     def _modules():
-        from repro_torch.models import layers, mamba2, moe, transformer
-        return (layers, mamba2, moe, transformer)
+        from repro_torch.models import (
+            layers, mamba2, mla, moe, transformer, whisper,
+        )
+        return (layers, mamba2, mla, moe, transformer, whisper)
 
     def __enter__(self):
         self.prev = self._modules()[0].COMPUTE_DTYPE
@@ -1790,6 +1842,420 @@ def lm_moe_phase(card, smi: str) -> None:
          dispatch_paths=served_paths, prompts_over_einsum_max=long_prompts,
          tokens_equal_isolated_decode=True, card_vs_cpu=card_vs_cpu,
          decode_tick=traced["decode_tick"],
+         phase_s=time.perf_counter() - t_phase)
+
+
+def lm_mla_phase(card, smi: str) -> None:
+    """Phase ``lm_mla``: ``deepseek-v2-236b`` at its published widths, cut
+    in layers to the dense lead layer and the first MoE layers, behind
+    the continuous batcher (MLA's cached direct form at prefill, its
+    absorbed form at decode; no hand-written kernel: JAX runs MLA on XLA
+    products); one full-width MLA layer's forms against each other and
+    the card against the CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import pspec
+    from repro_torch.models import mla, model_zoo, moe, transformer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    full = get_arch(LM_MLA_ARCH)
+    m, e = full.mla, full.moe
+    check((full.d_model, full.n_heads, m.q_lora_rank, m.kv_lora_rank,
+           m.qk_nope_dim, m.qk_rope_dim, m.v_head_dim, full.vocab,
+           e.n_experts, moe.padded_experts(e), e.top_k, e.d_ff_expert,
+           e.n_shared, e.d_ff_shared, e.first_dense_layers, e.d_ff_dense)
+          == (5120, 128, 1536, 512, 128, 64, 128, 102400, 160, 160, 6, 1536,
+              2, 3072, 1, 12288),
+          f"{LM_MLA_ARCH} at its published widths")
+    # gate (i), from the defs alone: nothing is allocated
+    check(full.param_count() == 235_741_434_880,
+          f"uncut {LM_MLA_ARCH}: 235,741,434,880 parameters, got "
+          f"{full.param_count()}")
+    cfg = dataclasses.replace(full, n_layers=LM_MLA_LAYERS)
+    zoo = model_zoo.get_model(cfg)
+    gc.collect()                      # the MoE phase's model, then
+    torch.cuda.empty_cache()          # earlier phases' cached blocks
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=card).manual_seed(0)
+    model = zoo.build(cfg, pspec.init_params(zoo.param_defs(cfg), gen, card))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    check(n_params == cfg.param_count() == 13_302_912_000,
+          f"{LM_MLA_LAYERS} layers: 13,302,912,000 parameters made, got "
+          f"{n_params}")
+    params_gb = torch.cuda.memory_allocated() / 1e9 - held_gb
+    rng = np.random.default_rng(LM_SEED)
+    lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab, n).tolist() for n in lens]
+
+    # the two MLA forms the batcher takes, counted where they run
+    forms = {"cached_direct": 0, "absorbed": 0}
+    real_attn = mla.mla_attention
+
+    def counted_attn(*a, **kw):
+        if kw.get("cache") is not None:
+            forms["absorbed" if kw.get("absorbed", True)
+                  else "cached_direct"] += 1
+        return real_attn(*a, **kw)
+
+    mla.mla_attention = counted_attn
+    try:
+        with torch.no_grad():      # cuBLAS handles, the bf16 weight copies
+            warm = torch.from_numpy(np.asarray([prompts[-1][:256]],
+                                               np.int32)).to(card)
+            model({"tokens": warm}, mode="prefill", cache=zoo.init_cache(
+                cfg, 1, LM_MAX_LEN, card))
+        torch.cuda.synchronize()
+        forms.update(cached_direct=0, absorbed=0)
+        reqs, served = serve_requests(cfg, model, prompts, card)
+        served_forms = dict(forms)
+    finally:
+        mla.mla_attention = real_attn
+    check(served_forms == {
+        "cached_direct": cfg.n_layers * served["prefills"],
+        "absorbed": cfg.n_layers * served["decode_steps"]},
+        f"every layer of each prefill took the cached direct form and of "
+        f"each decode step the absorbed form: {served_forms}")
+    # gate (iv)
+    check_isolated(cfg, model, reqs, card)
+
+    ratio = lambda a, b: float((a.float() - b.float()).abs().max()
+                               / b.float().abs().max())
+    # -- gate (ii): one full-width MLA layer, absorbed == cached direct -----
+    p = {n: t[0] for n, t in model.layers.attn.named_parameters()}
+    x = torch.from_numpy(np.random.default_rng(LM_SEED).normal(size=(
+        1, LM_MLA_TOKENS, cfg.d_model)).astype(np.float32))
+    with torch.no_grad():
+        o_abs, _ = mla.mla_attention(p, x.to(card), cfg, absorbed=True,
+                                     cache=mla.init_mla_cache(
+                                         cfg, 1, 2 * LM_MLA_TOKENS,
+                                         device=card))
+        o_dir, _ = mla.mla_attention(p, x.to(card), cfg, absorbed=False,
+                                     cache=mla.init_mla_cache(
+                                         cfg, 1, 2 * LM_MLA_TOKENS,
+                                         device=card))
+    r_forms = float((o_abs - o_dir).abs().max() / o_dir.abs().max())
+    check(r_forms <= MLA_FORMS_TOL, f"full-width MLA layer: absorbed within "
+          f"{MLA_FORMS_TOL} x max |o| of the cached direct form, got "
+          f"{r_forms}")
+
+    # -- gate (iii): the card against the CPU at f32 products ---------------
+    def layer_forms(pp, dev, dtype):
+        """o of the three forms on 16 tokens: direct, no cache; and after
+        a cached direct prefill of 12, the last 4 cached direct and
+        absorbed (with the cache's latents)."""
+        xx, k = x.to(dev), LM_MLA_TOKENS - 4
+        out = {}
+        with products_in(dtype), torch.no_grad():
+            out["direct"], _ = mla.mla_attention(pp, xx, cfg)
+            for form in ("cached_direct", "absorbed"):
+                c = mla.init_mla_cache(cfg, 1, 2 * LM_MLA_TOKENS, device=dev)
+                _, c = mla.mla_attention(pp, xx[:, :k], cfg, cache=c,
+                                         absorbed=False)
+                out[form], c = mla.mla_attention(
+                    pp, xx[:, k:], cfg, cache=c,
+                    absorbed=form == "absorbed")
+                out[form + "_c_kv"] = c["c_kv"][:, :LM_MLA_TOKENS]
+        return {n: t.cpu().float() for n, t in out.items()}
+
+    p_cpu = {n: t.cpu() for n, t in p.items()}
+    got, want = layer_forms(p, card, torch.float32), layer_forms(
+        p_cpu, "cpu", torch.float32)
+    layer_f32 = {n: ratio(got[n], want[n]) for n in got}
+    check(max(layer_f32.values()) <= LOGIT_TOL,
+          f"full-width MLA layer, f32 products: card within {LOGIT_TOL} x "
+          f"max |o| of the CPU in each form: {layer_f32}")
+    got16, want16 = layer_forms(p, card, torch.bfloat16), layer_forms(
+        p_cpu, "cpu", torch.bfloat16)
+    layer_bf16 = {n: ratio(got16[n], want16[n]) for n in got16}
+
+    ccfg, cut = cut_layers(model, LOGIT_DEPTH)
+    cpu_cut = on_cpu(cut)
+    ctoks = torch.from_numpy(np.random.default_rng(LM_SEED).integers(
+        0, cfg.vocab, (1, LM_MLA_TOKENS)).astype(np.int32))
+
+    def cut_logits(mdl, dev, dtype):
+        """Prefill of 12 (cached direct) then the last 4 decoded one at a
+        time (absorbed), and the train forward, concatenated."""
+        k = LM_MLA_TOKENS - 4
+        t = ctoks.to(dev)
+        with products_in(dtype), torch.no_grad():
+            lg_train, _, _ = mdl({"tokens": t}, mode="train")
+            c = transformer.init_cache(ccfg, 1, 2 * LM_MLA_TOKENS, dev)
+            lg, c, _ = mdl({"tokens": t[:, :k]}, mode="prefill", cache=c)
+            outs = [lg_train, lg]
+            for i in range(k, LM_MLA_TOKENS):
+                lg, c, _ = mdl({"tokens": t[:, i:i + 1]}, mode="decode",
+                               cache=c)
+                outs.append(lg)
+        return torch.cat(outs, dim=1).cpu().float()
+
+    got = cut_logits(cut, card, torch.float32)
+    want = cut_logits(cpu_cut, "cpu", torch.float32)
+    check(bool(torch.isfinite(got).all()) and got.shape == (
+        1, 2 * LM_MLA_TOKENS, cfg.vocab), "finite logits of the right shape")
+    r32 = ratio(got, want)
+    check(r32 <= LOGIT_TOL, f"{LOGIT_DEPTH} layers (lead + 1 MoE), f32 "
+          f"products: card logits within {LOGIT_TOL} x max |logit| of the "
+          f"CPU's, got {r32}")
+    got16 = cut_logits(cut, card, torch.bfloat16)
+    want16 = cut_logits(cpu_cut, "cpu", torch.bfloat16)
+    card_vs_cpu = {"tokens": LM_MLA_TOKENS, "layer_f32": layer_f32,
+                   "layer_bf16": layer_bf16, "layers": LOGIT_DEPTH,
+                   "ratio_f32": r32, "ratio_bf16": ratio(got16, want16),
+                   "bf16_rounding_floor": ratio(want16, want)}
+    del cut, cpu_cut, p_cpu
+
+    # -- teacher-forced prefill + decode against the full forward, at the
+    # cut's 4 layers (reported, not gated: ROADMAP C, random-init logits)
+    T, k = LM_FORCED
+    forced = torch.tensor([prompts[0][:T]], dtype=torch.int32, device=card)
+    with torch.no_grad():
+        full_lg, _, _ = model({"tokens": forced}, mode="prefill")
+        c = zoo.init_cache(cfg, 1, T + 4, card)
+        lg, c, _ = model({"tokens": forced[:, :k]}, mode="prefill", cache=c)
+        outs = [lg[:, -1]]
+        for t in range(k, T - 1):
+            lg, c, _ = model({"tokens": forced[:, t:t + 1]}, mode="decode",
+                             cache=c)
+            outs.append(lg[:, -1])
+    forced_r = [ratio(o, full_lg[:, k - 1 + i]) for i, o in enumerate(outs)]
+
+    traced = traces(cfg, model, prompts, rng, card, prefill=False)
+    c1 = zoo.init_cache(cfg, 1, LM_MAX_LEN, card)["layers"]
+    per_token_layer = c1["c_kv"].shape[-1] + c1["k_rope"].shape[-1]
+    cache_bytes = cfg.n_layers * LM_MAX_LEN * per_token_layer * 2
+    mha_bytes = cfg.n_layers * LM_MAX_LEN * 2 * cfg.n_heads * (
+        m.qk_nope_dim + m.qk_rope_dim) * 2
+    emit("lm_mla", card=smi, arch=LM_MLA_ARCH, cut_layers=LM_MLA_LAYERS,
+         cut=f"the dense lead layer and {LM_MLA_LAYERS - 1} of "
+             f"{full.n_layers - 1} MoE layers, published widths",
+         uncut_params=full.param_count(), n_params=n_params,
+         active_params=cfg.active_param_count(), init_s=init_s,
+         params_gb=params_gb, **served, held_before_phase_gb=held_gb,
+         peak_above_held_gb=served["peak_memory_allocated_gb"] - held_gb,
+         mla_forms=served_forms, tokens_equal_isolated_decode=True,
+         mla_cache_values_per_token_layer=per_token_layer,
+         mla_cache_bytes_per_slot=cache_bytes,
+         mha_cache_bytes_per_slot_same_widths=mha_bytes,
+         absorbed_vs_cached_direct=r_forms, card_vs_cpu=card_vs_cpu,
+         forced=dict(tokens=T, prefilled=k, layers=cfg.n_layers,
+                     max_ratio=max(forced_r)),
+         decode_tick=traced["decode_tick"],
+         phase_s=time.perf_counter() - t_phase)
+
+
+def lm_audio_phase(card, smi: str) -> None:
+    """Phase ``lm_audio``: ``whisper-medium`` uncut, through JAX's path
+    for an encoder-decoder (``serve_step``'s prefill with frames, then
+    greedy decode steps; the batcher has no audio path in either
+    package), at batch 8 and at batch 1 a clip; the card against the CPU
+    at two layers; ``make_cache`` against a prefill with frames."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import pspec
+    from repro_torch.models import model_zoo, whisper
+    from repro_torch.serve.serve_step import (
+        make_decode_step, make_prefill_step,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = get_arch(LM_AUDIO_ARCH)
+    check((cfg.enc_layers, cfg.n_layers, cfg.d_model, cfg.n_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab) == (24, 24, 1024, 16, 64,
+                                                  4096, 51865),
+          f"{LM_AUDIO_ARCH} at its published widths")
+    zoo = model_zoo.get_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=card).manual_seed(0)
+    model = zoo.build(cfg, pspec.init_params(zoo.param_defs(cfg), gen, card))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    # gate (i)
+    check(n_params == cfg.param_count() == 824_986_624,
+          f"{LM_AUDIO_ARCH}: 824,986,624 parameters made, got {n_params}")
+    rng = np.random.default_rng(LM_SEED)
+    frames = torch.from_numpy(rng.normal(size=(
+        AUDIO_CLIPS, AUDIO_FRAMES, cfg.d_model)).astype(np.float32)).to(card)
+    prompts = torch.from_numpy(rng.integers(0, cfg.vocab, (
+        AUDIO_CLIPS, AUDIO_PROMPT)).astype(np.int32)).to(card)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+
+    def transcribe(rows: slice) -> tuple[np.ndarray, dict]:
+        """Greedy tokens of the clips ``rows``: the prefill with frames
+        gives the first, then decode steps, each token read back as a
+        server streaming tokens does; host-clock times."""
+        n = rows.stop - rows.start
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        lg, cache = prefill(model, {"tokens": prompts[rows],
+                                    "frames": frames[rows]},
+                            zoo.init_cache(cfg, n, AUDIO_MAX_LEN, card))
+        nxt = torch.argmax(lg[:, -1].float(), dim=-1)[:, None].to(
+            torch.int32)
+        out = [nxt.cpu()]
+        ttft = time.perf_counter() - t
+        steps = []
+        while len(out) < AUDIO_NEW:
+            t = time.perf_counter()
+            nxt, cache = decode(model, nxt, cache)
+            out.append(nxt.cpu())
+            steps.append(time.perf_counter() - t)
+        check(cache["len"] == AUDIO_PROMPT + AUDIO_NEW - 1,
+              "the cache holds the prompt and every decoded token")
+        return torch.cat(out, dim=1).numpy(), {
+            "ttft_ms": ttft * 1e3,
+            "decode_step_ms_p50": float(np.percentile(steps, 50)) * 1e3,
+            "decode_tokens_per_s": n * len(steps) / sum(steps)}
+
+    with torch.no_grad():
+        transcribe(slice(0, 1))                         # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        enc_ms = {f"batch{b}": host_s(lambda: model.encode(frames[:b]), 3)
+                  * 1e3 for b in (1, AUDIO_CLIPS)}
+        toks8, run8 = transcribe(slice(0, AUDIO_CLIPS))
+        toks1, runs1 = zip(*(transcribe(slice(i, i + 1))
+                             for i in range(AUDIO_CLIPS)))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks1 = np.concatenate(toks1)
+    check(toks8.shape == (AUDIO_CLIPS, AUDIO_NEW) and bool(
+        ((toks8 >= 0) & (toks8 < cfg.vocab)).all()),
+        f"{AUDIO_NEW} tokens a clip, in the vocabulary")
+    batch1 = {k: float(np.median([r[k] for r in runs1]))
+              for k in runs1[0]}
+    ratio = lambda a, b: float((a.float() - b.float()).abs().max()
+                               / b.float().abs().max())
+
+    def first_logits(dtype):
+        """The prefill's next-token logits of every clip at batch 8 and
+        at batch 1 a clip, with the products in ``dtype``."""
+        out = []
+        with products_in(dtype):
+            for rows in [slice(0, AUDIO_CLIPS)] + [
+                    slice(i, i + 1) for i in range(AUDIO_CLIPS)]:
+                lg, _ = prefill(model, {"tokens": prompts[rows],
+                                        "frames": frames[rows]},
+                                zoo.init_cache(cfg, rows.stop - rows.start,
+                                               AUDIO_MAX_LEN, card))
+                out.append(lg[:, -1].float())
+        return ratio(out[0], torch.cat(out[1:]))
+
+    batch_ratio = {"bf16": first_logits(torch.bfloat16),
+                   "f32": first_logits(torch.float32)}
+
+    def nudged(mdl, c) -> float:
+        """How far one clip's next-token logits move, f32 products, when
+        every frame value is nudged one ulp up: the random-init model's
+        own sensitivity, beside which the batch-8 tokens are read."""
+        f = frames[:1]
+        up = torch.nextafter(f, torch.full_like(f, float("inf")))
+        step, out = make_prefill_step(c), []
+        with products_in(torch.float32):
+            for x in (f, up):
+                lg, _ = step(mdl, {"tokens": prompts[:1], "frames": x},
+                             zoo.init_cache(c, 1, AUDIO_MAX_LEN, card))
+                out.append(lg.float())
+        return ratio(out[1], out[0])
+
+    nudge = {f"{cfg.enc_layers}+{cfg.n_layers}": nudged(model, cfg)}
+
+    # traced batch-8 decode step
+    with torch.no_grad():
+        _, tcache = prefill(model, {"tokens": prompts, "frames": frames},
+                            zoo.init_cache(cfg, AUDIO_CLIPS, AUDIO_MAX_LEN,
+                                           card))
+        step_toks = prompts[:, -1:]
+
+        def one_step():
+            nonlocal tcache
+            nxt, tcache = decode(model, step_toks, tcache)
+            nxt.cpu()
+
+        traced = profile_run(one_step)
+
+    # -- gate (ii): the card against the CPU at two layers, f32 products ---
+    ccfg, cut = cut_layers(model, LOGIT_DEPTH)
+    cpu_cut = on_cpu(cut)
+    cframes, ctoks = frames[:1].cpu(), prompts[:1].cpu()
+
+    def cut_logits(mdl, dev, dtype):
+        """The train forward, then a prefill with frames and two decode
+        steps, logits concatenated."""
+        f, t = cframes.to(dev), ctoks.to(dev)
+        with products_in(dtype), torch.no_grad():
+            lg_train, _, _ = mdl({"tokens": t, "frames": f}, mode="train")
+            c = whisper.init_cache(ccfg, 1, AUDIO_MAX_LEN, dev)
+            lg, c, _ = mdl({"tokens": t, "frames": f}, mode="prefill",
+                           cache=c)
+            outs = [lg_train, lg]
+            for _ in range(2):
+                nxt = torch.argmax(outs[-1][:, -1:].float(), dim=-1).to(
+                    torch.int32)
+                lg, c, _ = mdl({"tokens": nxt}, mode="decode", cache=c)
+                outs.append(lg)
+        return torch.cat(outs, dim=1).cpu().float()
+
+    got = cut_logits(cut, card, torch.float32)
+    want = cut_logits(cpu_cut, "cpu", torch.float32)
+    check(bool(torch.isfinite(got).all()) and got.shape == (
+        1, 2 * AUDIO_PROMPT + 2, cfg.vocab), "finite logits, right shape")
+    r32 = ratio(got, want)
+    check(r32 <= LOGIT_TOL, f"{LOGIT_DEPTH} + {LOGIT_DEPTH} layers, f32 "
+          f"products: card logits within {LOGIT_TOL} x max |logit| of the "
+          f"CPU's (train, prefill, 2 decode steps), got {r32}")
+    got16 = cut_logits(cut, card, torch.bfloat16)
+    want16 = cut_logits(cpu_cut, "cpu", torch.bfloat16)
+    card_vs_cpu = {"layers": LOGIT_DEPTH, "frames": AUDIO_FRAMES,
+                   "ratio_f32": r32, "ratio_bf16": ratio(got16, want16),
+                   "bf16_rounding_floor": ratio(want16, want)}
+    nudge[f"{LOGIT_DEPTH}+{LOGIT_DEPTH}"] = nudged(cut, ccfg)
+    del cut, cpu_cut
+
+    # -- gate (iii): make_cache then decode == prefill with frames ----------
+    with torch.no_grad():
+        made = whisper.make_cache(cfg, model, frames[:2], AUDIO_MAX_LEN)
+        a, ca, _ = model({"tokens": prompts[:2]}, mode="prefill", cache=made)
+        b, cb, _ = model({"tokens": prompts[:2], "frames": frames[:2]},
+                         mode="prefill", cache=whisper.init_cache(
+                             cfg, 2, AUDIO_MAX_LEN, card))
+        pairs = [(a, b)]
+        for _ in range(2):
+            nxt = torch.argmax(b[:, -1:].float(), dim=-1).to(torch.int32)
+            a, ca, _ = model({"tokens": nxt}, mode="decode", cache=ca)
+            b, cb, _ = model({"tokens": nxt}, mode="decode", cache=cb)
+            pairs.append((a, b))
+    r_cache = max(ratio(x, y) for x, y in pairs)
+    check(r_cache <= LOGIT_TOL, f"make_cache then prefill and decode within "
+          f"{LOGIT_TOL} x max |logit| of a prefill with frames, got "
+          f"{r_cache}")
+
+    emit("lm_audio", card=smi, arch=LM_AUDIO_ARCH, n_params=n_params,
+         init_s=init_s, clips=AUDIO_CLIPS, frames=AUDIO_FRAMES,
+         prompt_tokens=AUDIO_PROMPT, new_tokens=AUDIO_NEW,
+         max_len=AUDIO_MAX_LEN, encoder_ms=enc_ms,
+         batch8=run8, batch1_median=batch1,
+         batch8_tokens_equal_batch1_share=float((toks8 == toks1).mean()),
+         batch8_clips_equal_batch1=int((toks8 == toks1).all(1).sum()),
+         batch8_vs_batch1_first_logits=batch_ratio,
+         one_ulp_frames_nudge_f32=nudge,
+         peak_memory_allocated_gb=peak_gb, held_before_phase_gb=held_gb,
+         peak_above_held_gb=peak_gb - held_gb,
+         decode_step_batch8=traced, card_vs_cpu=card_vs_cpu,
+         make_cache_vs_prefill_max_ratio=r_cache,
          phase_s=time.perf_counter() - t_phase)
 
 
@@ -3649,6 +4115,8 @@ def main() -> int:
     lm_dense_phase(card, smi)
     gla = lm_hybrid_phase(card, smi, out_dir)
     lm_moe_phase(card, smi)
+    lm_mla_phase(card, smi)
+    lm_audio_phase(card, smi)
     # chunk_scan's row: RWKV6's bonus form (phase lm) and Zamba2's GLA
     # form (phase lm_hybrid), each path's launches counted from zero
     lm = dict(lm, launches=lm["launches"] + gla["launches"],

@@ -4,7 +4,7 @@
 One ``ArchConfig`` per architecture lives in ``configs/<arch_id>.py``;
 each exposes ``CONFIG`` (the exact published numbers) and every config
 supports ``.reduced()`` -- a tiny same-family variant for CPU smoke
-tests.  The port registers every architecture but MLA and Whisper
+tests.  The port registers all ten architectures
 (``configs/__init__``).  The four assigned input shapes are global
 (``SHAPES``); per-arch applicability (decode/long-context skips) is
 declared via ``ArchConfig.supports``.

@@ -24,7 +24,8 @@ can decode from a state that JAX prefilled.  The transformer's tree
 (dense, VLM and MoE) and KV cache cross the same way
 (:func:`transformer_params_from_arrays`,
 :func:`transformer_cache_from_arrays`), and so do Zamba2's
-(:func:`zamba2_params_from_arrays`, :func:`zamba2_cache_from_arrays`).
+(:func:`zamba2_params_from_arrays`, :func:`zamba2_cache_from_arrays`)
+and Whisper's parameters (:func:`whisper_params_from_arrays`).
 
 This module takes plain numpy, so it imports nothing of the JAX package.
 """
@@ -180,15 +181,16 @@ def transformer_params_from_arrays(
     cfg: ArchConfig,
     device: "str | torch.device | None" = None,
 ):
-    """The port's dense, VLM or MoE transformer over a JAX parameter tree.
+    """The port's dense, VLM or MoE transformer, MLA included, over a
+    JAX parameter tree.
 
     ``tree`` holds exactly the leaves of ``transformer.param_defs(cfg)``
-    (``embed``, ``layers.{ln1,ln2,attn.*}`` and ``layers.mlp.*`` or
+    (``embed``, ``layers.{ln1,ln2,attn.*}`` -- with MLA ``attn.{wq_a,
+    q_norm,wq_b,wkv_a,kv_norm,wk_b,wv_b,wo}`` -- and ``layers.mlp.*`` or
     ``layers.moe.*`` stacked over layers, ``lead_layers.*`` before them
     where the MoE config has dense lead layers, ``ln_f``, and ``head``
     unless the embeddings are tied, ``img_proj`` for the VLM), each a
-    float32 array of the declared shape; nothing is cast.  An MLA config
-    raises ``NotImplementedError``.
+    float32 array of the declared shape; nothing is cast.
     """
     from repro_torch.models import transformer
     return _model_from_arrays(tree, transformer.param_defs(cfg),
@@ -212,6 +214,26 @@ def zamba2_params_from_arrays(
     from repro_torch.models import mamba2
     return _model_from_arrays(tree, mamba2.param_defs(cfg),
                               lambda t: mamba2.Zamba2(cfg, t), "Zamba2",
+                              resolve_device(device))
+
+
+def whisper_params_from_arrays(
+    tree: dict,
+    *,
+    cfg: ArchConfig,
+    device: "str | torch.device | None" = None,
+):
+    """The port's Whisper encoder-decoder over a JAX parameter tree.
+
+    ``tree`` holds exactly the leaves of ``whisper.param_defs(cfg)``
+    (``embed``, ``dec_pos``, ``enc_layers.{ln1,attn.*,ln2,mlp.*}`` and
+    ``dec_layers.{ln1,attn.*,ln_x,xattn.*,ln2,mlp.*}`` stacked over
+    layers, ``ln_enc``, ``ln_f``), each a float32 array of the declared
+    shape; nothing is cast.
+    """
+    from repro_torch.models import whisper
+    return _model_from_arrays(tree, whisper.param_defs(cfg),
+                              lambda t: whisper.Whisper(cfg, t), "Whisper",
                               resolve_device(device))
 
 

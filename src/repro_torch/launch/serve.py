@@ -8,10 +8,14 @@ over a fixed slot pool.
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch tinyllama-1.1b --device cpu                   # reduced, CPU
 
-``--arch`` takes every architecture the port serves: ``rwkv6-1.6b``,
+``--arch`` takes every registered architecture: ``rwkv6-1.6b``,
 ``zamba2-2.7b``, the dense and VLM transformers (tinyllama-1.1b,
 granite-3-2b, stablelm-3b, minitron-8b, paligemma-3b; served on text
-prompts alone) and ``qwen2-moe-a2.7b``.
+prompts alone) and the MoE transformers (``qwen2-moe-a2.7b``,
+``deepseek-v2-236b``).  ``whisper-medium`` is refused with
+``SystemExit``, as in the JAX launcher: the batcher has no audio path,
+so an encoder-decoder is served through ``serve_step``'s prefill (with
+frames) and decode steps instead.
 
 An open request stream served with a FIXED pool of cache slots;
 admission into freed slots every engine tick.  ``--device`` defaults to
@@ -50,10 +54,13 @@ def main(argv=None):
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
-    dev = resolve_device(args.device)
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if cfg.is_encoder_decoder:
+        raise SystemExit("enc-dec serving requires audio frames; "
+                         "use the decoder-only archs for this demo")
+    dev = resolve_device(args.device)
     zoo = model_zoo.get_model(cfg)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = zoo.build(cfg, pspec_lib.init_params(zoo.param_defs(cfg), gen,

@@ -1,7 +1,8 @@
 """Model registry (port of ``repro.models.model_zoo``): a uniform API over
-the families the port serves -- the SSM family (RWKV6), the hybrid
-family (Zamba2: Mamba2 and a shared attention block), and the dense, VLM
-and MoE families (the transformer; MoE without MLA).
+the ten architectures -- the SSM family (RWKV6), the hybrid family
+(Zamba2: Mamba2 and a shared attention block), the dense, VLM and MoE
+families (the transformer, with MLA for DeepSeek-V2) and the audio
+family (the Whisper encoder-decoder).
 
     zoo    = get_model(cfg)
     defs   = zoo.param_defs(cfg)                         # ParamDef tree
@@ -17,12 +18,7 @@ from typing import Callable
 
 from repro_torch.configs.base import ArchConfig, Family
 from repro_torch.distributed import pspec
-from repro_torch.models import mamba2, moe, rwkv, transformer
-
-#: the ROADMAP item that ports each family still missing
-NOT_PORTED = {
-    Family.AUDIO: "ROADMAP A.11 (Whisper family)",
-}
+from repro_torch.models import mamba2, moe, rwkv, transformer, whisper
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,16 +37,12 @@ def get_model(cfg: ArchConfig) -> Zoo:
     if cfg.family == Family.HYBRID:
         return Zoo(mamba2.param_defs, mamba2.loss_fn, mamba2.forward,
                    mamba2.init_cache, mamba2.Zamba2)
-    if cfg.family in (Family.DENSE, Family.VLM, Family.MOE):
-        if cfg.mla is not None:
-            raise NotImplementedError(
-                f"{cfg.arch_id}: the MLA transformer is not ported yet: "
-                f"{transformer.NOT_PORTED}")
-        return Zoo(transformer.param_defs, transformer.loss_fn,
-                   transformer.forward, transformer.init_cache,
-                   transformer.Transformer)
-    raise NotImplementedError(f"{cfg.family.value} family ({cfg.arch_id}) "
-                              f"is not ported yet: {NOT_PORTED[cfg.family]}")
+    if cfg.family == Family.AUDIO:
+        return Zoo(whisper.param_defs, whisper.loss_fn, whisper.forward,
+                   whisper.init_cache, whisper.Whisper)
+    return Zoo(transformer.param_defs, transformer.loss_fn,
+               transformer.forward, transformer.init_cache,
+               transformer.Transformer)
 
 
 def param_count(cfg: ArchConfig, active_only: bool = False) -> int:

@@ -1,29 +1,32 @@
 """Decoder-only transformer, the dense/GQA family (tinyllama, minitron,
-granite, stablelm), the MoE family (qwen2-moe) and the VLM backbone
-(paligemma prefix-LM); port of ``repro.models.transformer``.  The MLA
-branch of the JAX model (``cfg.mla``) is not ported: asking for it
-raises naming ROADMAP A.11 (MLA family).
+granite, stablelm), the MoE family (qwen2-moe, and deepseek-v2 with MLA)
+and the VLM backbone (paligemma prefix-LM); port of
+``repro.models.transformer``.
 
 The parameters are a :class:`Transformer` module whose names follow the
-JAX parameter tree (``embed``, ``layers.ln1``, ``layers.attn.wq``,
-``layers.mlp.wg`` or ``layers.moe.router``, ``lead_layers.*``, ``ln_f``,
-``head``, ``img_proj``), each layer parameter stacked over the layers as
-in JAX, so a converted JAX tree loads one to one
+JAX parameter tree (``embed``, ``layers.ln1``, ``layers.attn.wq`` or,
+with ``cfg.mla``, ``layers.attn.{wq_a,q_norm,wq_b,wkv_a,kv_norm,wk_b,
+wv_b,wo}``, ``layers.mlp.wg`` or ``layers.moe.router``, ``lead_layers.*``,
+``ln_f``, ``head``, ``img_proj``), each layer parameter stacked over the
+layers as in JAX, so a converted JAX tree loads one to one
 (``convert.transformer_params_from_arrays``).  Python loops over the
 lead layers and the layers take the place of ``_scan_layers``; remat has
 no counterpart (serving does not need it).
 
-Modes, as in JAX (the attention is the same in all three):
+Modes, as in JAX:
   train   -- causal forward, next-token CE loss (``loss_fn``); the MoE
              layers drop tokens past their capacity
   prefill -- causal forward, filling a KV cache when one is given; MoE
-             dropless
-  decode  -- T new tokens against an existing cache; MoE dropless
+             dropless; MLA in its direct form
+  decode  -- T new tokens against an existing cache; MoE dropless; MLA
+             in its absorbed form
 
-The KV cache is ``{"layers": {"k", "v": (L, B, S, Hkv, Dh) bf16, "len":
-int}}`` (and ``"lead"`` alike for the dense lead layers of an MoE
-config): one host length for all layers, where JAX stacks an int32
-``len`` per layer (see ``layers.attention_block``).
+The cache is ``{"layers": {"k", "v": (L, B, S, Hkv, Dh) bf16, "len":
+int}}``, or with MLA ``{"layers": {"c_kv": (L, B, S, kv_lora),
+"k_rope": (L, B, S, 1, qk_rope) bf16, "len": int}}`` (and ``"lead"``
+alike for the dense lead layers of an MoE config): one host length for
+all layers, where JAX stacks an int32 ``len`` per layer (see
+``layers.attention_block``).
 """
 from __future__ import annotations
 
@@ -33,28 +36,24 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed.pspec import ParamDef, stack_tree
 from repro_torch.models import layers as L
+from repro_torch.models import mla as mla_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import AttnShape, COMPUTE_DTYPE
 
 MODES = ("train", "prefill", "decode")
-NOT_PORTED = "ROADMAP A.11 (MLA family)"
 
 
 def _attn_shape(cfg: ArchConfig) -> AttnShape:
     return AttnShape(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
 
 
-def _no_mla(cfg: ArchConfig) -> None:
-    if cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the MLA transformer is not ported yet: "
-            f"{NOT_PORTED}")
-
-
 def _layer_defs(cfg: ArchConfig, dense_ffn_width: int | None = None) -> dict:
     d: dict = {"ln1": L.rmsnorm_def(cfg.d_model),
-               "ln2": L.rmsnorm_def(cfg.d_model),
-               "attn": L.attention_defs(cfg.d_model, _attn_shape(cfg))}
+               "ln2": L.rmsnorm_def(cfg.d_model)}
+    if cfg.mla is not None:
+        d["attn"] = mla_lib.mla_defs(cfg)
+    else:
+        d["attn"] = L.attention_defs(cfg.d_model, _attn_shape(cfg))
     if dense_ffn_width is not None:
         d["mlp"] = L.mlp_defs(cfg.d_model, dense_ffn_width, cfg.act)
     elif cfg.moe is not None:
@@ -69,7 +68,6 @@ def _n_dense_lead(cfg: ArchConfig) -> int:
 
 
 def param_defs(cfg: ArchConfig) -> dict:
-    _no_mla(cfg)
     n_lead = _n_dense_lead(cfg)
     defs: dict = {
         "embed": L.embed_defs(cfg.vocab, cfg.d_model),
@@ -146,12 +144,22 @@ class Transformer(L.LMModule):
         """Layer ``i`` of the stack ``lay``: attention, then the dense MLP
         or the MoE FFN (dropless unless training); returns ``(x, aux)``."""
         cfg = self.cfg
-        attn = {n: self.bf16(lay.attn, n)[i]
-                for n in ("wq", "wk", "wv", "wo")}
-        a, _ = L.attention_block(
-            attn, L.rmsnorm(lay.ln1[i], x, cfg.norm_eps),
-            shape=_attn_shape(cfg), rope_theta=cfg.rope_theta,
-            prefix_len=prefix_len, window=cfg.sliding_window, cache=cache)
+        h = L.rmsnorm(lay.ln1[i], x, cfg.norm_eps)
+        if cfg.mla is not None:
+            # the weights through the kept bf16 copies, the two norm
+            # scales in f32
+            attn = {n: (p[i] if n.endswith("norm")
+                        else self.bf16(lay.attn, n)[i])
+                    for n, p in lay.attn.named_parameters()}
+            a, _ = mla_lib.mla_attention(attn, h, cfg, cache=cache,
+                                         absorbed=mode == "decode")
+        else:
+            attn = {n: self.bf16(lay.attn, n)[i]
+                    for n in ("wq", "wk", "wv", "wo")}
+            a, _ = L.attention_block(
+                attn, h, shape=_attn_shape(cfg), rope_theta=cfg.rope_theta,
+                prefix_len=prefix_len, window=cfg.sliding_window,
+                cache=cache)
         x = x + a
         h = L.rmsnorm(lay.ln2[i], x, cfg.norm_eps)
         if lay.moe is not None:
@@ -194,15 +202,14 @@ class Transformer(L.LMModule):
             kv = None if cache is None else cache[key]
             for i in range(lay.ln1.shape[0]):
                 layer_cache = None if kv is None else {
-                    "k": kv["k"][i], "v": kv["v"][i], "len": kv["len"]}
+                    n: (t if n == "len" else t[i]) for n, t in kv.items()}
                 x, a = self._block(lay, i, x, layer_cache, mode=mode,
                                    prefix_len=prefix_len)
                 if a is not None:
                     aux = aux + a
             if kv is not None:
                 # every layer wrote [len, len + T) of its buffers in place
-                new_cache[key] = {"k": kv["k"], "v": kv["v"],
-                                  "len": kv["len"] + x.shape[1]}
+                new_cache[key] = dict(kv, len=kv["len"] + x.shape[1])
         x = L.rmsnorm(self.ln_f, x, cfg.norm_eps)
         if cfg.tie_embeddings:
             lg = L.logits(self.bf16(self, "embed"), x, transpose=True)
@@ -221,14 +228,18 @@ def forward(cfg: ArchConfig, params: Transformer, batch: dict, *,
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                device: "str | torch.device | None" = None) -> dict:
-    """Stacked (L, batch, max_len, Hkv, Dh) bf16 KV buffers, length 0
-    (``"lead"`` alike for the dense lead layers).  ``device=None`` means
-    the card, as at every entry point."""
+    """Stacked (L, batch, max_len, Hkv, Dh) bf16 KV buffers, or with MLA
+    the stacked latent and rope-key buffers (``mla.init_mla_cache``),
+    length 0 (``"lead"`` alike for the dense lead layers).
+    ``device=None`` means the card, as at every entry point."""
     from repro_torch.device import resolve_device
-    _no_mla(cfg)
     dev = resolve_device(device)
 
     def one(n):
+        if cfg.mla is not None:
+            c = mla_lib.init_mla_cache(cfg, batch, max_len, device=dev)
+            return {k: (t if k == "len" else torch.stack([t] * n))
+                    for k, t in c.items()}
         sh = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
         return {"k": torch.zeros(sh, dtype=L.COMPUTE_DTYPE, device=dev),
                 "v": torch.zeros(sh, dtype=L.COMPUTE_DTYPE, device=dev),

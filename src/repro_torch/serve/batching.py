@@ -52,12 +52,15 @@ class ContinuousBatcher:
     """The serving engine over one device (``device=None``: the card).
 
     ``params`` is the model (``model_zoo.get_model(cfg).build(...)``: an
-    RWKV6, a Zamba2, or a dense, VLM or MoE transformer) and must live on
-    ``device``.  Each slot keeps the family's own cache (RWKV6's
-    recurrent state, whose time-mix runs the ``chunk_scan`` kernel on the
-    card; Zamba2's conv tails and SSM states, its Mamba2 layers on the
-    same kernel in the GLA form, and its shared block's KV caches; the
-    transformer's KV cache of ``max_len`` positions).
+    RWKV6, a Zamba2, or a dense, VLM or MoE transformer, MLA included)
+    and must live on ``device``.  Each slot keeps the family's own cache
+    (RWKV6's recurrent state, whose time-mix runs the ``chunk_scan``
+    kernel on the card; Zamba2's conv tails and SSM states, its Mamba2
+    layers on the same kernel in the GLA form, and its shared block's KV
+    caches; the transformer's KV cache of ``max_len`` positions, or MLA's
+    latent cache).  As in JAX there is no audio path: an
+    encoder-decoder is served through ``serve_step``'s prefill with
+    frames and its decode step.
     """
 
     def __init__(self, cfg: ArchConfig, params, *, slots: int,

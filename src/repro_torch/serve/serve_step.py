@@ -2,7 +2,8 @@
 decode with greedy or temperature sampling.
 
 The returned functions take the model (the port's parameters: an
-``RWKV6``, a ``Zamba2`` or a ``Transformer`` module) where the JAX steps
+``RWKV6``, a ``Zamba2``, a ``Transformer`` or a ``Whisper`` module; a
+Whisper prefill's batch carries the ``frames``) where the JAX steps
 take the parameter tree, and run under ``torch.no_grad``.  At
 temperature > 0 the decode step samples with the ``torch.Generator`` it
 is given, whose draws are not JAX's.

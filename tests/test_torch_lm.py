@@ -507,28 +507,45 @@ def test_init_params_follows_the_init_rules():
 
 
 def test_registry_names_what_is_not_ported():
-    """The registry serves RWKV6, Zamba2, the five dense/VLM transformers
-    and Qwen's MoE; the MLA (deepseek-v2-236b) and Whisper configs and
-    families still name A.11."""
-    assert sorted(ARCHS) == sorted([
-        "rwkv6-1.6b", "tinyllama-1.1b", "granite-3-2b", "stablelm-3b",
-        "minitron-8b", "paligemma-3b", "zamba2-2.7b", "qwen2-moe-a2.7b"])
-    for arch in ("deepseek-v2-236b", "whisper-medium"):
-        with pytest.raises(KeyError, match="A.11"):
-            get_arch(arch)
+    """Nothing is left unported: the registry holds all ten of the JAX
+    package's architectures, each equal to JAX's field for field, and
+    every family builds through ``model_zoo`` (its ``build`` the
+    family's module); an unknown name still raises."""
+    import dataclasses
+
+    from repro.configs import ARCHS as J_ARCHS
+    from repro_torch.models import mamba2, transformer, whisper
+    assert sorted(ARCHS) == sorted(J_ARCHS) and len(ARCHS) == 10
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("nope")
-    import dataclasses
-    from repro_torch.configs.base import Family, MLACfg, MoECfg
-    base = get_arch("rwkv6-1.6b")
-    audio = dataclasses.replace(base, family=Family.AUDIO)
-    mla = dataclasses.replace(base, family=Family.MOE,
-                              moe=MoECfg(n_experts=8, top_k=2,
-                                         d_ff_expert=64),
-                              mla=MLACfg(32, 16, 16, 8, 16))
-    for cfg in (audio, mla):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            model_zoo.get_model(cfg)
+    builds = {"ssm": rwkv.RWKV6, "hybrid": mamba2.Zamba2,
+              "audio": whisper.Whisper}
+    for arch in sorted(ARCHS):
+        cfg, jcfg = get_arch(arch), j_get_arch(arch)
+        fields = [dataclasses.asdict(c) for c in (cfg, jcfg)]
+        for f in fields:
+            f["family"] = f["family"].value
+        assert fields[0] == fields[1], arch
+        zoo = model_zoo.get_model(cfg)
+        assert zoo.build is builds.get(cfg.family.value,
+                                       transformer.Transformer), arch
+        small = cfg.reduced()
+        model = zoo.build(small, tpspec.init_params(
+            zoo.param_defs(small), torch.Generator().manual_seed(0), CPU))
+        assert sum(p.numel() for p in model.parameters()) \
+            == model_zoo.param_count(small), arch
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_param_count_equals_jax(arch):
+    """The port's ``param_count`` of every registered architecture at
+    full width, total and routing-active, equals JAX's (counted from the
+    defs, nothing allocated)."""
+    cfg, jcfg = get_arch(arch), j_get_arch(arch)
+    assert model_zoo.param_count(cfg) == jzoo.param_count(jcfg)
+    assert model_zoo.param_count(cfg, active_only=True) == jzoo.param_count(
+        jcfg, active_only=True)
+    assert cfg.param_count() == jzoo.param_count(jcfg)
 
 
 # ---------------------------------------------------------------------------
@@ -638,5 +655,6 @@ def test_launch_serve_cli_completes_on_cpu(capsys):
                         "--device", "cpu"])
     assert stats.completed == 3 and max(stats.slot_occupancy) <= 2
     assert "completed 3/3 requests" in capsys.readouterr().out
-    with pytest.raises(SystemExit):        # not ported: not a choice
+    with pytest.raises(SystemExit,            # JAX's launcher refuses it
+                       match="enc-dec serving requires audio frames"):
         serve.main(["--arch", "whisper-medium", "--device", "cpu"])

@@ -471,9 +471,11 @@ def test_full_width_param_count_equals_jax(jx, arch):
 
 
 def test_moe_and_mla_name_their_roadmap_item():
-    """MoE is ported (the ``cfg.moe`` branch builds); MLA, alone or with
-    MoE, still names its ROADMAP item, in the defs and in the zoo."""
-    base = get_arch("tinyllama-1.1b")
+    """MoE, MLA alone and MLA with MoE each build: the ``cfg.moe`` branch
+    gives the layers ``moe``, the ``cfg.mla`` branch gives them MLA's
+    ``attn`` and its latent cache, and the zoo builds the transformer
+    for all three; an unknown mode still raises."""
+    base = get_arch("tinyllama-1.1b").reduced()
     moe = dataclasses.replace(base, moe=MoECfg(n_experts=8, top_k=2,
                                                d_ff_expert=64))
     mla = dataclasses.replace(base, mla=MLACfg(32, 16, 16, 8, 16))
@@ -481,10 +483,20 @@ def test_moe_and_mla_name_their_roadmap_item():
     assert model_zoo.get_model(dataclasses.replace(
         moe, family=Family.MOE)).build is transformer.Transformer
     for cfg in (mla, dataclasses.replace(moe, mla=mla.mla)):
-        with pytest.raises(NotImplementedError, match="A.11"):
-            transformer.param_defs(cfg)
-        with pytest.raises(NotImplementedError, match="A.11"):
-            model_zoo.get_model(dataclasses.replace(cfg, family=Family.MOE))
+        defs = transformer.param_defs(cfg)
+        assert "wkv_a" in defs["layers"]["attn"]
+        assert ("moe" in defs["layers"]) == (cfg.moe is not None)
+        zoo = model_zoo.get_model(dataclasses.replace(cfg, family=Family.MOE))
+        assert zoo.build is transformer.Transformer
+        model = zoo.build(cfg, tpspec.init_params(
+            defs, torch.Generator().manual_seed(0), CPU))
+        cache = transformer.init_cache(cfg, 1, 8, CPU)["layers"]
+        assert cache["c_kv"].shape == (cfg.n_layers, 1, 8, 16)
+        with torch.no_grad():
+            lg, cache, _ = model({"tokens": torch.zeros(
+                (1, 3), dtype=torch.int32)}, mode="prefill",
+                cache={"layers": cache})
+        assert lg.shape == (1, 3, cfg.vocab) and cache["layers"]["len"] == 3
     with pytest.raises(ValueError, match="mode"):
         _reduced_model("tinyllama-1.1b")[1](
             {"tokens": torch.zeros((1, 2), dtype=torch.int32)},
