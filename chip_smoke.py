@@ -238,6 +238,26 @@ exits nonzero; nothing is caught and passed over):
    prefill, two decode steps); ``make_cache`` then decode within the
    same bound of a prefill with frames then decode.  No hand-written
    kernel;
+10g. train -- the single-device trainer: ``launch.train`` on
+   ``tinyllama-1.1b`` uncut (1.1 B f32 parameters from a seeded generator
+   on the card), 30 steps of 8 x 512 Markov tokens in 2 microbatches at
+   lr 2e-2, checkpointing every 25 steps into a directory of the
+   checkout (free space printed and gated first): every loss finite, the
+   mean of the last 5 below the first, tokens/s, step p50/p99, AdamW's ms
+   and device kernels, peak memory, a traced step's idle share, each
+   save's and the restore's seconds and GB/s, steps with a write in
+   flight; the restored ``step_30`` equals the run's state on every leaf
+   (``torch.equal``), and a second run over a directory holding only
+   ``step_25`` resumes there with step 26's loss ``==`` the first run's
+   (later steps' drift printed); one ``make_train_step`` step of the
+   model cut to 2 layers with f32 products on the card and on the CPU
+   (plain, 2 microbatches, compressed; the CPU against itself on one
+   thread is the floor): the loss within 1e-5, ``grad_norm`` 1e-4,
+   mu 1e-3, nu 2e-3 (compressed: scales and mu where the int8 levels
+   agree, 1e-3), each gradient bound raised to twice the floor where the
+   floor is above it; reduced RWKV6 and Zamba2 losses under autograd on
+   the card raise ``NoBackwardError`` and their no-grad forwards launch
+   ``chunk_scan``.  No hand-written kernel: JAX trains on XLA products;
 11. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -264,7 +284,9 @@ SERVE_FLOWS = 1 << 17     # flows streamed through the live flow table
 SERVE_CONCURRENCY = 65536  # mean concurrent flows of the steady stream
 SERVE_TICK = 32768        # packets per ingest tick
 SERVE_TABLE = (32768, 8)  # n_buckets, bucket_size: 2^18 slots
-CHECK_FLOWS = 4096        # prefix served by both routes in serve_check
+CHECK_FLOWS = 2048        # prefix served by both routes in serve_check
+#                           (the plain rank loop over its ticks is most
+#                           of that phase's time)
 CHECK_TABLE = (64, 8)     # 512 slots: the prefix overflows into the spill
 CHECK_CONCURRENCY = 2048.0
 CHECK_TIMEOUT = 0.05      # stream seconds; evicts some idle flows (a
@@ -322,6 +344,25 @@ LM_AUDIO_ARCH = "whisper-medium"    # phase lm_audio: the encoder-decoder
 AUDIO_CLIPS, AUDIO_FRAMES = 8, 1500  # 30 s clips after the (stub) frontend
 AUDIO_PROMPT, AUDIO_NEW = 4, 64     # decoder prompt, greedy tokens a clip
 AUDIO_MAX_LEN = 448        # Whisper's decoder limit
+TRAIN_ARCH = "tinyllama-1.1b"       # phase train: the single-device trainer
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ = 30, 8, 512
+TRAIN_MICRO = 2            # microbatches a step
+TRAIN_LR = 2e-2            # from a sweep of 1e-4..2e-2 (PERF.md §6)
+TRAIN_RESUME_AT = 25       # N: run A (the 30-step run) saves step_N
+TRAIN_HELDOUT = 10_000     # batch_at index of gate (a)'s held-out batch
+TRAIN_MIN_DROP = 1e-3      # its loss drop over the run, nats (frozen: 0)
+TRAIN_CUT = 2              # layers of the card-against-CPU step
+TRAIN_CPU_BATCH = (4, 32)  # its batch: sequences x tokens
+# its limits, card against CPU (relative).  At full width the random-init
+# attention is near one-hot, so the f32 summation order alone moves the
+# gradients: the CPU on one thread against the CPU on all of its threads
+# read grad_norm 4.1e-4, mu 1.6e-3, nu 2.6e-3, and the card 1.6-1.9e-4,
+# 1.1-1.5e-3, 1.6-2.8e-3, scales 1.6e-3 (PERF.md §6).  The loss is
+# held at 1e-5; each other limit sits above the card's reading.
+TRAIN_VS_CPU_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 3e-4,
+                    "mu_rel": 1.6e-3, "nu_rel": 3e-3, "scale_rel_max": 2e-3,
+                    "mu_rel_where_levels_agree": 2e-3}
+TRAIN_SCAN_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")  # chunk_scan families
 SCAN_KERNELS = {"chunked": 3, "step": 1}  # chunk_scan's device kernels a
 #                           call by design: C >= 2 (prep, state pass,
 #                           output) and C == 1 (one step)
@@ -2259,6 +2300,347 @@ def lm_audio_phase(card, smi: str) -> None:
          phase_s=time.perf_counter() - t_phase)
 
 
+def train_leaves(state) -> dict:
+    """A ``TrainState``'s tensors by dotted name (``step``, ``params.*``,
+    ``mu.*``, ``nu.*``)."""
+    from repro_torch.distributed.pspec import tree_items
+    from repro_torch.train.optimizer import param_tree
+    return {n: t.detach() for n, t in
+            [("step", state.step)]
+            + [(f"params.{n}", t)
+               for n, t in tree_items(param_tree(state.params))]
+            + [(f"mu.{n}", t) for n, t in tree_items(state.mu)]
+            + [(f"nu.{n}", t) for n, t in tree_items(state.nu)]}
+
+
+def train_card_vs_cpu(card, smi: str, cfg) -> dict:
+    """Phase ``train`` (c): one ``make_train_step`` step of ``cfg`` cut to
+    ``TRAIN_CUT`` layers with f32 products, from the same parameters on
+    the card and on the CPU (plain, 2 microbatches, compressed).  Every
+    row is printed before any gate; each quantity is gated at its
+    ``TRAIN_VS_CPU_TOL`` limit (compressed: each leaf's int8 scale, and
+    mu where the two devices' int8 levels agree)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.data.tokens import TokenPipeline, on_device
+    from repro_torch.distributed import compression, pspec
+    from repro_torch.models import model_zoo
+    from repro_torch.train.optimizer import AdamW, warmup_cosine
+    from repro_torch.train.train_step import (
+        TrainLoopCfg, loss_and_grads, make_train_step,
+    )
+
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_CUT)
+    zoo = model_zoo.get_model(cut)
+    g = torch.Generator(device=card).manual_seed(0)
+    base = pspec.init_params(zoo.param_defs(cut), g, card)
+    base_cpu = pspec.tree_map(lambda t: t.cpu(), base)
+    cbatch = TokenPipeline(cut.vocab, *TRAIN_CPU_BATCH, seed=0).batch_at(0)
+    rel = lambda a, b: float(torch.linalg.vector_norm(a - b)
+                             / torch.linalg.vector_norm(b))
+    build = lambda tree: zoo.build(cut, pspec.tree_map(
+        lambda t: t.clone(), tree))
+
+    def one_step(dev, tree, loop):
+        opt = AdamW(lr=warmup_cosine(TRAIN_LR, 20, TRAIN_STEPS))
+        st = opt.init(build(tree))
+        with products_in(torch.float32):
+            st, m, _ = make_train_step(cut, opt, loop)(
+                st, on_device(dev)(cbatch))
+        return m, {k: v.cpu() for k, v in train_leaves(st).items()}
+
+    def sent(dev, tree) -> dict:
+        """What the compressed step sends: its gradients, int8-quantised
+        with zero residual."""
+        with products_in(torch.float32):
+            _, grads = loss_and_grads(cut, build(tree),
+                                      on_device(dev)(cbatch))
+        return {n: t.cpu() for n, t in
+                pspec.tree_items(compression.compress_grads(grads)[0])}
+
+    def compare(a, b) -> dict:
+        (ma, sa), (mb, sb) = a, b
+        la, lb = float(ma["loss"]), float(mb["loss"])
+        gaps = {p: {n[len(p) + 1:]: rel(sa[n], sb[n]) for n in sb
+                    if n.startswith(p + ".")} for p in ("mu", "nu", "params")}
+        worst = lambda d: sorted(d.items(), key=lambda kv: -kv[1])[:3]
+        return {"loss_a": la, "loss_b": lb, "loss_rel": abs(la - lb) / abs(lb),
+                "grad_norm_rel": abs(float(ma["grad_norm"])
+                                     - float(mb["grad_norm"]))
+                / float(mb["grad_norm"]),
+                **{f"{p}_rel": max(d.values()) for p, d in gaps.items()},
+                "mu_worst_leaves": worst(gaps["mu"]),
+                "nu_worst_leaves": worst(gaps["nu"])}
+
+    rows = {}
+    for name, loop in (("plain", TrainLoopCfg()),
+                       ("microbatches_2", TrainLoopCfg(microbatches=2)),
+                       ("compressed", TrainLoopCfg(compress_grads=True))):
+        t0 = time.perf_counter()
+        got, want = one_step(card, base, loop), one_step(
+            torch.device("cpu"), base_cpu, loop)
+        row = rows[name] = compare(got, want)
+        if loop.compress_grads:
+            # int8 levels round gradients that differ in their last bits,
+            # so an element on a rounding boundary may land a level apart:
+            # scales compared, mu where levels agree
+            # (tests/test_torch_train_step.py holds the same)
+            gsent, csent = sent(card, base), sent(torch.device("cpu"),
+                                                  base_cpu)
+            scale = lambda t: float(t.abs().max()) / 127
+            apart = {n: torch.round(gsent[n] / scale(gsent[n]))
+                     != torch.round(csent[n] / scale(csent[n]))
+                     for n in csent}
+            row.update(
+                scale_rel_max=max(abs(scale(gsent[n]) - scale(csent[n]))
+                                  / scale(csent[n]) for n in csent),
+                mu_rel_where_levels_agree=max(
+                    rel(got[1]["mu." + n][~apart[n]],
+                        want[1]["mu." + n][~apart[n]]) for n in csent),
+                levels_apart=int(sum(int(a.sum()) for a in apart.values())),
+                elements=sum(a.numel() for a in apart.values()))
+        row["s"] = time.perf_counter() - t0
+    emit("train_card_vs_cpu", card=smi, layers=TRAIN_CUT,
+         batch=TRAIN_CPU_BATCH, products="f32", limits=TRAIN_VS_CPU_TOL,
+         **rows)
+    for name, row in rows.items():
+        keys = (("scale_rel_max", "mu_rel_where_levels_agree")
+                if name == "compressed" else ("mu_rel", "nu_rel"))
+        for key in ("loss_rel", "grad_norm_rel") + keys:
+            check(row[key] <= TRAIN_VS_CPU_TOL[key], f"{name}: {key} card "
+                  f"vs CPU {row[key]} > {TRAIN_VS_CPU_TOL[key]}")
+    return rows
+
+
+def train_scan_refusal(card) -> dict:
+    """Phase ``train`` (d): on the card a loss of a reduced RWKV6 and
+    Zamba2 under autograd raises ``NoBackwardError`` before ``chunk_scan``
+    launches; the same forward under ``torch.no_grad()`` launches it."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline, on_device
+    from repro_torch.distributed import pspec
+    from repro_torch.kernels import chunk_scan as cs
+    from repro_torch.kernels.ops import NoBackwardError
+    from repro_torch.models import model_zoo
+
+    refusal = {}
+    for arch in TRAIN_SCAN_ARCHS:
+        rcfg = get_arch(arch).reduced()
+        rzoo = model_zoo.get_model(rcfg)
+        g = torch.Generator(device=card).manual_seed(0)
+        model = rzoo.build(rcfg, pspec.init_params(rzoo.param_defs(rcfg), g,
+                                                   card))
+        rb = on_device(card)(TokenPipeline(rcfg.vocab, 2, 64, seed=0)
+                             .batch_at(0))
+        before = cs.launches
+        try:
+            rzoo.loss_fn(rcfg, model, rb)
+            raised = None
+        except NoBackwardError as e:
+            raised = str(e)
+        check(raised is not None and cs.launches == before,
+              f"{arch}: a loss under autograd on the card raises "
+              f"NoBackwardError before launching chunk_scan")
+        with torch.no_grad():
+            loss = float(rzoo.loss_fn(rcfg, model, rb))
+        refusal[arch] = {"raised": raised[:80], "no_grad_loss": loss,
+                         "no_grad_launches": cs.launches - before}
+        check(cs.launches > before and np.isfinite(loss),
+              f"{arch}: the no-grad forward launches chunk_scan")
+    return refusal
+
+
+def train_phase(card, smi: str) -> None:
+    """Phase ``train``: the single-device training half.  (a) the launcher
+    on ``tinyllama-1.1b`` uncut, 30 steps of 8 x 512 Markov tokens in 2
+    microbatches, checkpointing into a directory of the checkout, which is
+    also run A of (b): it saves ``step_25`` (async, in flight over steps
+    26-30) and ``step_30``; its gates: finite losses, the last 5 below
+    the first, and a held-out batch's loss down by ``TRAIN_MIN_DROP``
+    from the seed-0 init's; (b) the restored ``step_30`` equals run A's
+    state leaf for leaf, and run B, over a directory holding only
+    ``step_25``, resumes there with step 26's loss ``==`` run A's; (c)
+    one step of the model cut to 2 layers with f32 products on the card
+    and on the CPU from the same parameters (plain, 2 microbatches,
+    compressed); (d) RWKV6 and Zamba2 losses under autograd on the card
+    raise ``NoBackwardError`` (``chunk_scan``'s kernel has no backward)
+    and their no-grad forwards still launch the kernel."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.tokens import TokenPipeline, on_device
+    from repro_torch.distributed import pspec
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import model_zoo
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.optimizer import AdamW, param_tree, warmup_cosine
+    from repro_torch.train.train_step import TrainLoopCfg, make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab) == (22, 2048, 32, 4, 64, 5632,
+                                                  32000),
+          f"{TRAIN_ARCH} at its published widths")
+    n_params = cfg.param_count()
+    ckpt_gb = 3 * 4 * n_params / 1e9          # params + mu + nu, f32
+    root = ROOT / "build"
+    root.mkdir(exist_ok=True)
+    free_gb = shutil.disk_usage(root).free / 1e9
+    emit("train_disk", card=smi, dir=str(root), free_gb=free_gb,
+         checkpoint_gb=ckpt_gb, most_at_once=2)
+    check(free_gb > 2 * ckpt_gb + 5, f"room for two {ckpt_gb:.1f} GB "
+          f"checkpoints in {root}: {free_gb:.1f} GB free")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    floor = float(np.log(cfg.vocab))
+    # gate (a) reads one held-out batch, which no step trains on, under
+    # no_grad before step 1 (the launcher's seed-0 init, rebuilt here) and
+    # after step 30: a trainer that never updated reads a drop of 0
+    zoo = model_zoo.get_model(cfg)
+    pipe = TokenPipeline(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    held = on_device(card)(pipe.batch_at(TRAIN_HELDOUT))
+
+    def held_loss(model) -> float:
+        with torch.no_grad():
+            return float(zoo.loss_fn(cfg, model, held))
+
+    gen = torch.Generator(device=card).manual_seed(0)
+    held_before = held_loss(zoo.build(cfg, pspec.init_params(
+        zoo.param_defs(cfg), gen, card)))
+    gc.collect()
+    torch.cuda.empty_cache()
+    work = pathlib.Path(tempfile.mkdtemp(prefix="train_smoke_", dir=root))
+    try:
+        x_dir, y_dir = work / "x", work / "y"
+
+        def launch(ckpt_dir):
+            log = io.StringIO()
+            with contextlib.redirect_stdout(log):
+                out = launch_train.run([
+                    "--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS),
+                    "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                    "--microbatches", str(TRAIN_MICRO), "--lr",
+                    str(TRAIN_LR), "--ckpt-dir", str(ckpt_dir),
+                    "--ckpt-every", str(TRAIN_RESUME_AT), "--log-every", "5",
+                    "--seed", "0"])
+            return out, log.getvalue().splitlines()
+
+        # -- (a) the launcher at full width; run A of (b) -------------------
+        torch.cuda.synchronize()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run_a, log_a = launch(x_dir)
+        run_a_s = time.perf_counter() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        losses = run_a.losses
+        check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+              f"{TRAIN_STEPS} finite losses, got {losses}")
+        last5 = float(np.mean(losses[-5:]))
+        check(last5 < losses[0], f"the mean of the last 5 losses ({last5}) "
+              f"below the first ({losses[0]}); losses {losses}")
+        held_after = held_loss(run_a.state.params)
+        check(held_after <= held_before - TRAIN_MIN_DROP,
+              f"the held-out batch's loss drops by {TRAIN_MIN_DROP} or more "
+              f"over the run: {held_before} -> {held_after}")
+        first_step_s = run_a.step_s[0]             # cuBLAS and allocator
+        quiet = run_a.step_s[1:TRAIN_RESUME_AT]    # no write in flight
+        busy = run_a.step_s[TRAIN_RESUME_AT:]      # step_25 being written
+        pct = lambda a, q: float(np.percentile(a, q))
+        saves = [dict(e, gb_per_s=e["bytes"] / 1e9 / e["write_s"])
+                 for e in run_a.ckpt_log]
+        check([e["step"] for e in saves] == [TRAIN_RESUME_AT, TRAIN_STEPS],
+              f"saves at steps {TRAIN_RESUME_AT} and {TRAIN_STEPS}")
+
+        # -- (b) restore and resume at full width --------------------------
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored, _ = ckpt.restore(str(x_dir / f"step_{TRAIN_STEPS}"),
+                                   device=card)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        want, got = train_leaves(run_a.state), train_leaves(restored)
+        check(set(want) == set(got) and all(
+            torch.equal(want[n], got[n]) for n in want),
+            "the restored step_30 equals run A's state on every leaf")
+        del restored, got, want
+        y_dir.mkdir()
+        shutil.move(str(x_dir / f"step_{TRAIN_RESUME_AT}"),
+                    str(y_dir / f"step_{TRAIN_RESUME_AT}"))
+        shutil.rmtree(x_dir)
+        t0 = time.perf_counter()
+        run_b, log_b = launch(y_dir)
+        run_b_s = time.perf_counter() - t0
+        shutil.rmtree(y_dir)
+        check(run_b.start_step == TRAIN_RESUME_AT and any(
+            ln.startswith("resumed from") and ln.endswith(
+                f"at step {TRAIN_RESUME_AT}") for ln in log_b),
+            f"run B resumed at step {TRAIN_RESUME_AT}: {log_b[:2]}")
+        check(run_b.losses[0] == losses[TRAIN_RESUME_AT],
+              f"run B's step {TRAIN_RESUME_AT + 1} loss "
+              f"{run_b.losses[0]} == run A's {losses[TRAIN_RESUME_AT]}")
+        pa, pb = (train_leaves(r.state) for r in (run_a, run_b))
+        drift = {"loss_abs": [abs(b - a) for a, b in zip(
+                     losses[TRAIN_RESUME_AT:], run_b.losses)],
+                 "params_max_rel_norm": max(float(
+                     (pb[n] - pa[n]).norm() / pa[n].norm())
+                     for n in pa if n.startswith("params."))}
+        del pa, pb, run_a
+
+        # -- a traced step, the optimizer alone ----------------------------
+        state = run_b.state
+        opt = AdamW(lr=warmup_cosine(TRAIN_LR, 20, TRAIN_STEPS))
+        step_fn = make_train_step(cfg, opt, TrainLoopCfg(
+            microbatches=TRAIN_MICRO))
+        batch = on_device(card)(pipe.batch_at(TRAIN_STEPS))
+        traced = profile_run(lambda: float(step_fn(state, batch)[1]["loss"]))
+        grads = pspec.tree_map(torch.zeros_like, param_tree(state.params))
+        opt_ms = cuda_ms(lambda: opt.update(state, grads), reps=5, warmup=1)
+        opt_trace = profile_run(lambda: opt.update(state, grads))
+        del state, run_b, grads, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    emit("train", card=smi, arch=TRAIN_ARCH, n_params=n_params,
+         steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+         microbatches=TRAIN_MICRO, lr=TRAIN_LR, warmup=20,
+         losses=losses, first_loss=losses[0], last5_mean=last5,
+         uniform_floor=floor, heldout_batch=TRAIN_HELDOUT,
+         heldout_loss_before=held_before, heldout_loss_after=held_after,
+         heldout_drop=held_before - held_after,
+         heldout_min_drop=TRAIN_MIN_DROP, launcher_log=log_a, run_s=run_a_s,
+         run_tokens_per_s=tokens * TRAIN_STEPS / run_a_s,
+         step_tokens_per_s=tokens / pct(quiet, 50),
+         step_p50_s=pct(quiet, 50), step_p99_s=pct(quiet, 99),
+         first_step_s=first_step_s,
+         steps_with_write_in_flight_s=busy,
+         optimizer_ms=opt_ms, optimizer_device_kernels=opt_trace[
+             "device_kernels"], optimizer_trace=opt_trace,
+         held_before_phase_gb=held_gb, peak_gb=peak_gb,
+         peak_above_held_gb=peak_gb - held_gb,
+         reckoned_state_gb={"params": 4 * n_params / 1e9,
+                            "grads": 4 * n_params / 1e9,
+                            "mu_nu": 8 * n_params / 1e9},
+         traced_step=traced, saves=saves, restore_s=restore_s,
+         restore_gb_per_s=saves[-1]["bytes"] / 1e9 / restore_s,
+         restored_equals_saved=True, run_b_s=run_b_s, run_b_log=log_b,
+         resumed_loss_equal=True, drift=drift,
+         phase_s=time.perf_counter() - t_phase)
+    train_card_vs_cpu(card, smi, cfg)
+    emit("train_refusal", card=smi, **train_scan_refusal(card),
+         phase_s=time.perf_counter() - t_phase)
+
+
 def compact_phase(card) -> tuple[dict, dict]:
     """Phase ``compact``: for each exit profile, a model trained on
     ``make_profile_dataset(profile, 6000, seed=0xD2)`` walks its test
@@ -4117,6 +4499,7 @@ def main() -> int:
     lm_moe_phase(card, smi)
     lm_mla_phase(card, smi)
     lm_audio_phase(card, smi)
+    train_phase(card, smi)
     # chunk_scan's row: RWKV6's bonus form (phase lm) and Zamba2's GLA
     # form (phase lm_hybrid), each path's launches counted from zero
     lm = dict(lm, launches=lm["launches"] + gla["launches"],

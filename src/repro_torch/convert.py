@@ -25,7 +25,10 @@ can decode from a state that JAX prefilled.  The transformer's tree
 (:func:`transformer_params_from_arrays`,
 :func:`transformer_cache_from_arrays`), and so do Zamba2's
 (:func:`zamba2_params_from_arrays`, :func:`zamba2_cache_from_arrays`)
-and Whisper's parameters (:func:`whisper_params_from_arrays`).
+and Whisper's parameters (:func:`whisper_params_from_arrays`).  A JAX
+``TrainState`` (step, parameters and both moments) becomes the port's
+(:func:`train_state_from_arrays`), so both trainers can start from the
+very same state.
 
 This module takes plain numpy, so it imports nothing of the JAX package.
 """
@@ -235,6 +238,36 @@ def whisper_params_from_arrays(
     return _model_from_arrays(tree, whisper.param_defs(cfg),
                               lambda t: whisper.Whisper(cfg, t), "Whisper",
                               resolve_device(device))
+
+
+def train_state_from_arrays(
+    tree: dict,
+    *,
+    cfg: ArchConfig,
+    device: "str | torch.device | None" = None,
+):
+    """The port's ``TrainState`` from a JAX one handed over as numpy:
+    ``tree`` holds ``step`` (an int32 scalar), ``params`` (the model's
+    parameter tree, which builds the model as the ``*_params_from_arrays``
+    functions do), and ``mu`` and ``nu`` (float32 trees of the same
+    leaves and shapes); nothing is cast."""
+    from repro_torch.models import model_zoo
+    from repro_torch.train.optimizer import TrainState
+    if set(tree) != {"step", "params", "mu", "nu"}:
+        raise ValueError(f"need exactly step, params, mu and nu; got "
+                         f"{sorted(tree)}")
+    step = np.asarray(tree["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"step: need an int32 scalar, got {step.dtype} "
+                         f"{step.shape}")
+    dev = resolve_device(device)
+    zoo = model_zoo.get_model(cfg)
+    defs = zoo.param_defs(cfg)
+    model = _model_from_arrays(tree["params"], defs,
+                               lambda t: zoo.build(cfg, t), cfg.arch_id, dev)
+    mu, nu = (_model_from_arrays(tree[name], defs, lambda t: t, name, dev)
+              for name in ("mu", "nu"))
+    return TrainState(step=_tensor(step, dev), params=model, mu=mu, nu=nu)
 
 
 def rwkv_cache_from_arrays(

@@ -55,6 +55,18 @@ def tree_items(tree, prefix: str = "") -> list[tuple[str, Any]]:
     return [(prefix[:-1], tree)]
 
 
+def tree_from_items(names: list[str], leaves) -> dict:
+    """The nested dict whose ``tree_items`` are ``zip(names, leaves)``."""
+    tree: dict = {}
+    for name, leaf in zip(names, leaves):
+        node = tree
+        *path, last = name.split(".")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return tree
+
+
 def stack_defs(d: ParamDef, n: int) -> ParamDef:
     """Stack a per-layer def across ``n`` layers."""
     return dataclasses.replace(

@@ -222,6 +222,25 @@ def dt_traverse(
 # ---------------------------------------------------------------------------
 # chunk_scan
 # ---------------------------------------------------------------------------
+class NoBackwardError(RuntimeError):
+    """A kernel was asked to run where autograd would need its backward,
+    which it does not have."""
+
+
+def require_no_grad(name: str, *tensors: torch.Tensor | None) -> None:
+    """Raise :class:`NoBackwardError` when grad mode is on and any of
+    ``tensors`` requires grad: a kernel launched through ``ctypes`` writes
+    outputs with no ``grad_fn``, so its inputs would silently get no
+    gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NoBackwardError(
+            f"{name}: the CUDA kernel has no backward (as the JAX "
+            f"package's Pallas kernel has none), and an input requires "
+            f"grad; run it under torch.no_grad() for inference, or on "
+            f"the CPU's plain version (or impl='ref') to differentiate")
+
+
 def chunk_scan(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -239,7 +258,10 @@ def chunk_scan(
     ``impl=None`` launches the kernel for a CUDA tensor and runs the plain
     chunked version (``ref.chunk_scan_chunked_ref``) for a CPU tensor;
     ``"ref"`` runs the plain version on either device (the checks on the
-    card compare the two).  As in the JAX package: ``state=None``
+    card compare the two).  The kernel has no backward, so under grad
+    mode an input that requires grad makes the kernel route raise
+    :class:`NoBackwardError` rather than return outputs that drop the
+    gradient.  As in the JAX package: ``state=None``
     is f32 zeros, the GLA form runs unless a bonus is given, a T of at
     most ``chunk`` runs as one chunk of C = T, and a longer T that is no
     multiple of ``chunk`` is padded with zero q/k/v and decay 1.0 steps
@@ -247,6 +269,8 @@ def chunk_scan(
     """
     if impl not in (None, "ref"):
         raise ValueError(f"unknown impl {impl!r}; use None or 'ref'")
+    if impl is None and q.device.type == "cuda":
+        require_no_grad("chunk_scan", q, k, v, decay, bonus, state)
     B, T, dk = q.shape
     dv = v.shape[-1]
     if state is None:

@@ -67,21 +67,25 @@ class LMModule(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def bf16(self, owner: nn.Module, name: str) -> torch.Tensor:
-        """``owner.<name>`` cast to the compute dtype.  Under autograd the
-        cast is made at every call (it carries the gradient); otherwise
-        one copy is kept until the parameter changes in place, which gives
-        the same numbers as casting at every call."""
+    def bf16(self, owner: nn.Module, name: str,
+             index: int | None = None) -> torch.Tensor:
+        """``owner.<name>`` (its layer ``index`` of a stacked parameter)
+        cast to the compute dtype.  Under autograd the cast is made at
+        every call (it carries the gradient), of the one layer only: a
+        slice of a cast of the whole stack would keep every layer's copy
+        alive until the backward.  Otherwise one copy of the whole
+        parameter is kept until it changes in place, which gives the same
+        numbers as casting at every call."""
         p = getattr(owner, name)
         if torch.is_grad_enabled() and p.requires_grad:
-            return p.to(COMPUTE_DTYPE)
+            return (p if index is None else p[index]).to(COMPUTE_DTYPE)
         key = (id(owner), name)
         hit = self._bf16.get(key)
         if (hit is None or hit[0] != p._version
                 or hit[1].dtype != COMPUTE_DTYPE):
             hit = (p._version, p.detach().to(COMPUTE_DTYPE))
             self._bf16[key] = hit
-        return hit[1]
+        return hit[1] if index is None else hit[1][index]
 
 
 # ---------------------------------------------------------------------------

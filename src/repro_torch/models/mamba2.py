@@ -135,7 +135,7 @@ class MambaLayers(L.ParamGroup):
         B, T, _ = x.shape
         d_inner, H, conv_ch = _dims(cfg)
         N, hd = s.state_dim, s.head_dim
-        w = lambda name: model.bf16(self, name)[i]
+        w = lambda name: model.bf16(self, name, i)
         xc = L.rmsnorm(self.ln[i], x, cfg.norm_eps).to(COMPUTE_DTYPE)
         proj = xc @ w("w_in")
         z, xbc, dt = torch.split(proj, [d_inner, conv_ch, H], dim=-1)

@@ -97,7 +97,7 @@ class TimeMix(L.ParamGroup):
         cfg = model.cfg
         B, T, D = x.shape
         H, hd = _head_dims(cfg)
-        w = lambda name: model.bf16(self, name)[i]
+        w = lambda name: model.bf16(self, name, i)
         xc = x.to(COMPUTE_DTYPE)
         prev = None if state is None else state["shift"]
         xs_delta = _shift(xc, prev) - xc
@@ -141,7 +141,7 @@ class ChannelMix(L.ParamGroup):
 
     def forward(self, model: "RWKV6", i: int, x: torch.Tensor,
                 state: dict | None):
-        w = lambda name: model.bf16(self, name)[i]
+        w = lambda name: model.bf16(self, name, i)
         xc = x.to(COMPUTE_DTYPE)
         prev = None if state is None else state["shift"]
         xs_delta = _shift(xc, prev) - xc

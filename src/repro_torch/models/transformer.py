@@ -149,12 +149,12 @@ class Transformer(L.LMModule):
             # the weights through the kept bf16 copies, the two norm
             # scales in f32
             attn = {n: (p[i] if n.endswith("norm")
-                        else self.bf16(lay.attn, n)[i])
+                        else self.bf16(lay.attn, n, i))
                     for n, p in lay.attn.named_parameters()}
             a, _ = mla_lib.mla_attention(attn, h, cfg, cache=cache,
                                          absorbed=mode == "decode")
         else:
-            attn = {n: self.bf16(lay.attn, n)[i]
+            attn = {n: self.bf16(lay.attn, n, i)
                     for n in ("wq", "wk", "wv", "wo")}
             a, _ = L.attention_block(
                 attn, h, shape=_attn_shape(cfg), rope_theta=cfg.rope_theta,
@@ -166,15 +166,15 @@ class Transformer(L.LMModule):
             mo = lay.moe
             # the router and the shared experts through the kept bf16
             # copies; the experts in f32, cast per call (no copy kept)
-            p = {"router": self.bf16(mo, "router")[i],
+            p = {"router": self.bf16(mo, "router", i),
                  "wg": mo.wg[i], "wu": mo.wu[i], "wd": mo.wd[i]}
             if mo.shared is not None:
-                p["shared"] = {n: self.bf16(mo.shared, n)[i]
+                p["shared"] = {n: self.bf16(mo.shared, n, i)
                                for n in ("wg", "wu", "wd")}
             out, aux = moe_lib.moe_ffn(p, h, cfg.moe,
                                        dropless=mode != "train")
             return x + out, aux
-        ffn = {n: self.bf16(lay.mlp, n)[i] for n, _ in
+        ffn = {n: self.bf16(lay.mlp, n, i) for n, _ in
                lay.mlp.named_parameters()}
         return x + L.mlp(ffn, h, cfg.act), None
 

@@ -122,7 +122,7 @@ class Whisper(L.LMModule):
 
     def _group(self, owner: nn.Module, i: int) -> dict:
         """Layer ``i``'s weights of a group, through the kept bf16 copies."""
-        return {n: self.bf16(owner, n)[i] for n, _ in owner.named_parameters()}
+        return {n: self.bf16(owner, n, i) for n, _ in owner.named_parameters()}
 
     def encode(self, frames: torch.Tensor) -> torch.Tensor:
         """frames: (B, T_enc, d_model) stub embeddings -> encoder output
@@ -145,8 +145,8 @@ class Whisper(L.LMModule):
         """Decoder layer ``i``'s cross-attention K and V (B, T_enc, H, Dh)
         from the encoder output (JAX's ``_xattn_kv``)."""
         p = self.dec_layers.xattn
-        return (L._heads_proj(enc_out, self.bf16(p, "wk")[i]),
-                L._heads_proj(enc_out, self.bf16(p, "wv")[i]))
+        return (L._heads_proj(enc_out, self.bf16(p, "wk", i)),
+                L._heads_proj(enc_out, self.bf16(p, "wv", i)))
 
     def _dec_block(self, i: int, x: torch.Tensor, enc_out, cache, xkv):
         cfg = self.cfg
@@ -158,10 +158,10 @@ class Whisper(L.LMModule):
         x = x + a
         # cross attention (the K/V precomputed at prefill when cached)
         h = L.rmsnorm(lay.ln_x[i], x, cfg.norm_eps)
-        q = L._heads_proj(h.to(COMPUTE_DTYPE), self.bf16(lay.xattn, "wq")[i])
+        q = L._heads_proj(h.to(COMPUTE_DTYPE), self.bf16(lay.xattn, "wq", i))
         k, v = self.xattn_kv(i, enc_out) if xkv is None else xkv
         a = L.attend(q, k, v, causal=False)
-        wo = self.bf16(lay.xattn, "wo")[i]
+        wo = self.bf16(lay.xattn, "wo", i)
         B, T = a.shape[:2]
         dt = torch.promote_types(a.dtype, wo.dtype)
         a = a.reshape(B, T, -1).to(dt) @ wo.reshape(-1, wo.shape[-1]).to(dt)
