@@ -178,26 +178,29 @@ exits nonzero; nothing is caught and passed over):
    tokens/s, tick p50/p99, peak memory, one traced decode tick and one
    traced prefill.  No hand-written kernel: JAX runs this family on XLA
    products alone;
-10c. lm_hybrid -- ``zamba2-2.7b`` at full width (54 Mamba2 layers, D =
-   2560, 80 heads of 64, N = 64, chunk 128, one shared attention block of
-   32 heads of 80 every 6 layers; 2,396,455,840 random f32 parameters made
-   on the card) behind the same batcher and traffic: all complete,
-   occupancy <= 8, ``chunk_scan`` (GLA form) launched 54 x (prefills +
-   decode steps) times as 54 x (3 x prefills + decode steps) device
+10c. lm_hybrid -- ``zamba2-2.7b`` at full width (D = 2560, 80 heads of
+   64, N = 64, chunk 128, one shared attention block of 32 heads of 80
+   every 6 layers) cut in depth to 18 of its 54 Mamba2 layers (3 of 9
+   groups, random f32 parameters made on the card; the uncut config's
+   2,396,455,840 counted from the defs; cut for the whole script's time)
+   behind the same batcher and traffic: all complete,
+   occupancy <= 8, ``chunk_scan`` (GLA form) launched 18 x (prefills +
+   decode steps) times as 18 x (3 x prefills + decode steps) device
    kernels, tokens == isolated decode; every layer's own ``chunk_scan``
    call of one prefill and one decode step held against the plain chunked
    version (finite, within the kernel tolerance); one group (6 layers and
    the shared block) on the card within 0.05 x max |logit| of the CPU at
    f32 products, beside the floor (o x (1 + 2^-23)); the teacher-forced
-   decode printed at one group and 54 layers; one 9,000-token request
+   decode printed at one group and 18 layers; one 9,000-token request
    into a 16,384-position cache (the window slice at decode), the kernel
    at T = 9,000 against the plain version at the first and last layer,
    ``attend`` on the slice == the masked cache within 1e-5, cache bytes
    and a decode step with the slice on and off; the GLA kernel's times at
    B*H = 80 (T = 1,024, 1, 9,088) beside its bound; two traces;
-10d. lm_moe -- ``qwen2-moe-a2.7b`` at full width (24 layers, D = 2048,
-   60 routed experts padded to 64, top-4, 4 shared; 15,146,256,384
-   random f32 parameters, the experts cast per call) behind the same
+10d. lm_moe -- ``qwen2-moe-a2.7b`` at full width (D = 2048, 60 routed
+   experts padded to 64, top-4, 4 shared) cut in depth to 12 of its 24
+   layers (random f32 parameters, the experts cast per call; the uncut
+   config's 15,146,256,384 counted from the defs) behind the same
    batcher and traffic: all complete, tokens == isolated decode, the
    scatter dispatch (prompts over 1,024 tokens) and the einsum dispatch
    (the rest, every decode step) counted; two layers on the card within
@@ -258,6 +261,22 @@ exits nonzero; nothing is caught and passed over):
    floor is above it; reduced RWKV6 and Zamba2 losses under autograd on
    the card raise ``NoBackwardError`` and their no-grad forwards launch
    ``chunk_scan``.  No hand-written kernel: JAX trains on XLA products;
+10h. dist -- the multi-device half with one rank: a one-rank NCCL group
+   (``distributed.group.init``, a ``file://`` store) and a (1, 1) ("data",
+   "model") ``DeviceMesh`` on the card; ``compressed_psum`` over every
+   leaf of ``tinyllama-1.1b``'s uncut parameter shapes (1.1 B f32 values
+   from a seeded generator) without and with the error feedback ==
+   ``compress_grads`` bit for bit, the tree's collective ms; the model cut
+   to 2 layers placed by ``train_state_shardings``: sharded ``save`` ==
+   plain ``save`` (arrays and template), ``restore`` with the shardings ==
+   plain ``restore`` (DTensors on ``cuda``), ``remesh`` onto a one-rank
+   ("data",) mesh keeps every value; ``pipeline_forward`` with one stage
+   and M = 6 == the stage on each microbatch; the dry run's ``run_cell``
+   of ``tinyllama-1.1b`` x ``train_4k`` (base, opt) and
+   ``deepseek-v2-236b`` x ``decode_32k`` on 16x16 (traced on ``meta``), and
+   phase ``train``'s step counted at one chip: its p50 at least the
+   counted ``t_compute`` (p50 over the op-bytes bound printed, not
+   gated).  No hand-written kernel: JAX's multi-device half has none;
 11. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -268,6 +287,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -331,9 +351,13 @@ ATTN_PREFILL = (1024, 2048, 32, 4, 64)   # Tq, Tk, query heads, KV heads, d
 ATTN_F32_ATOL = 2e-5       # tests/test_perf_layouts.py, f32 inputs
 ATTN_BF16_ULPS = 2         # bf16 inputs: 2 bf16 ulps of max |naive|
 LM_HYBRID_ARCH = "zamba2-2.7b"      # phase lm_hybrid: the hybrid family
+LM_HYBRID_LAYERS = 18      # 3 of its 9 groups (6 Mamba2 layers and the
+#                           shared block each): the whole script went past
+#                           1,100 s on a slow machine with phase dist added
 LONG_PROMPT, LONG_MAX_LEN = 9000, 16384  # its long context: > 2 x window
 WINDOW_ATOL = 1e-5         # tests/test_perf_layouts.py, the window slice
 LM_MOE_ARCH = "qwen2-moe-a2.7b"     # phase lm_moe: the MoE family
+LM_MOE_LAYERS = 12         # 12 of its 24 layers, for the same reason
 LM_MLA_ARCH = "deepseek-v2-236b"    # phase lm_mla: MLA (and MoE)
 LM_MLA_LAYERS = 4          # the dense lead layer and 3 of the 59 MoE
 #                           layers: 53.2 GB of f32 parameters (5: 69.1)
@@ -363,6 +387,7 @@ TRAIN_VS_CPU_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 3e-4,
                     "mu_rel": 1.6e-3, "nu_rel": 3e-3, "scale_rel_max": 2e-3,
                     "mu_rel_where_levels_agree": 2e-3}
 TRAIN_SCAN_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")  # chunk_scan families
+DIST_TREE_VALUES = 1_100_048_384   # phase dist: TRAIN_ARCH's parameters
 SCAN_KERNELS = {"chunked": 3, "step": 1}  # chunk_scan's device kernels a
 #                           call by design: C >= 2 (prep, state pass,
 #                           output) and C == 1 (one step)
@@ -1406,12 +1431,15 @@ def lm_dense_phase(card, smi: str) -> None:
 
 
 def lm_hybrid_phase(card, smi: str, out_dir: pathlib.Path) -> dict:
-    """Phase ``lm_hybrid``: ``zamba2-2.7b`` at full width behind the
-    continuous batcher, its 54 Mamba2 layers on the ``chunk_scan`` kernel
+    """Phase ``lm_hybrid``: ``zamba2-2.7b`` at full width, cut to
+    ``LM_HYBRID_LAYERS`` of its 54 Mamba2 layers (whole groups), behind
+    the continuous batcher, every Mamba2 layer on the ``chunk_scan`` kernel
     in the GLA form; each layer's call held against the plain chunked
     version; the card against the CPU at one group; a 9,000-token context
     through the sliding-window slice.  Returns the GLA form's part of the
     ``chunk_scan`` row."""
+    import dataclasses
+
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.distributed import pspec
@@ -1425,15 +1453,17 @@ def lm_hybrid_phase(card, smi: str, out_dir: pathlib.Path) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_phase = time.perf_counter()
-    cfg = get_arch(LM_HYBRID_ARCH)
-    s = cfg.ssm
-    _, H, _ = mamba2._dims(cfg)
-    check((cfg.n_layers, cfg.d_model, H, s.head_dim, s.state_dim,
-           s.conv_dim, s.chunk, cfg.shared_attn_every, cfg.n_heads,
-           cfg.head_dim, cfg.d_ff, cfg.vocab, cfg.sliding_window)
+    full = get_arch(LM_HYBRID_ARCH)
+    s = full.ssm
+    _, H, _ = mamba2._dims(full)
+    check((full.n_layers, full.d_model, H, s.head_dim, s.state_dim,
+           s.conv_dim, s.chunk, full.shared_attn_every, full.n_heads,
+           full.head_dim, full.d_ff, full.vocab, full.sliding_window)
           == (54, 2560, 80, 64, 64, 4, 128, 6, 32, 80, 10240, 32000, 4096),
           f"{LM_HYBRID_ARCH} at its published widths (the shared block's "
           f"32 heads are 2560 / 32 = 80 wide)")
+    check(full.param_count() == 2_396_455_840, f"{full.param_count()}")
+    cfg = dataclasses.replace(full, n_layers=LM_HYBRID_LAYERS)
     zoo = model_zoo.get_model(cfg)
     torch.cuda.synchronize()
     held_gb = torch.cuda.memory_allocated() / 1e9   # earlier phases' data
@@ -1443,7 +1473,7 @@ def lm_hybrid_phase(card, smi: str, out_dir: pathlib.Path) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    check(n_params == cfg.param_count() == 2_396_455_840,
+    check(n_params == cfg.param_count(),
           f"every declared parameter is made: {n_params}")
     rng = np.random.default_rng(LM_SEED)
     lens = rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)
@@ -1736,8 +1766,8 @@ def lm_hybrid_phase(card, smi: str, out_dir: pathlib.Path) -> dict:
          **traced, phase_s=time.perf_counter() - t_phase)
     p, d, big = rows["prefill"], rows["decode"], rows["long"]
     return {"launches": launches, "kernel_launches": kernel_launches,
-            "launches_path": "lm_hybrid: 54 per prefill and per decode "
-                             "step",
+            "launches_path": f"lm_hybrid: {cfg.n_layers} per prefill "
+                             "and per decode step",
             "max_abs_err": max(per_layer["worst_o_max_abs_err"],
                                per_layer["worst_state_max_abs_err"]),
             "worst_error_over_tolerance": worst,
@@ -1753,9 +1783,11 @@ def lm_hybrid_phase(card, smi: str, out_dir: pathlib.Path) -> dict:
 
 
 def lm_moe_phase(card, smi: str) -> None:
-    """Phase ``lm_moe``: ``qwen2-moe-a2.7b`` at full width behind the
-    continuous batcher (no hand-written kernel: JAX runs MoE on XLA
+    """Phase ``lm_moe``: ``qwen2-moe-a2.7b`` at full width, cut to
+    ``LM_MOE_LAYERS`` of its 24 layers, behind the continuous batcher (no hand-written kernel: JAX runs MoE on XLA
     products and scatters), the card against the CPU at two layers."""
+    import dataclasses
+
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.distributed import pspec
@@ -1764,13 +1796,15 @@ def lm_moe_phase(card, smi: str) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_phase = time.perf_counter()
-    cfg = get_arch(LM_MOE_ARCH)
-    m = cfg.moe
-    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-           cfg.head_dim, cfg.vocab, m.n_experts, moe.padded_experts(m),
+    full = get_arch(LM_MOE_ARCH)
+    m = full.moe
+    check((full.n_layers, full.d_model, full.n_heads, full.n_kv_heads,
+           full.head_dim, full.vocab, m.n_experts, moe.padded_experts(m),
            m.top_k, m.d_ff_expert, m.n_shared, m.d_ff_shared)
           == (24, 2048, 16, 16, 128, 151936, 60, 64, 4, 1408, 4, 5632),
           f"{LM_MOE_ARCH} at its published widths")
+    check(full.param_count() == 15_146_256_384, f"{full.param_count()}")
+    cfg = dataclasses.replace(full, n_layers=LM_MOE_LAYERS)
     zoo = model_zoo.get_model(cfg)
     torch.cuda.empty_cache()          # earlier phases' cached blocks
     torch.cuda.synchronize()
@@ -1781,7 +1815,7 @@ def lm_moe_phase(card, smi: str) -> None:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in model.parameters())
-    check(n_params == cfg.param_count() == 15_146_256_384,
+    check(n_params == cfg.param_count(),
           f"every declared parameter is made: {n_params}")
     params_gb = torch.cuda.memory_allocated() / 1e9 - held_gb
     rng = np.random.default_rng(LM_SEED)
@@ -2452,7 +2486,7 @@ def train_scan_refusal(card) -> dict:
     return refusal
 
 
-def train_phase(card, smi: str) -> None:
+def train_phase(card, smi: str) -> float:
     """Phase ``train``: the single-device training half.  (a) the launcher
     on ``tinyllama-1.1b`` uncut, 30 steps of 8 x 512 Markov tokens in 2
     microbatches, checkpointing into a directory of the checkout, which is
@@ -2466,7 +2500,8 @@ def train_phase(card, smi: str) -> None:
     and on the CPU from the same parameters (plain, 2 microbatches,
     compressed); (d) RWKV6 and Zamba2 losses under autograd on the card
     raise ``NoBackwardError`` (``chunk_scan``'s kernel has no backward)
-    and their no-grad forwards still launch the kernel."""
+    and their no-grad forwards still launch the kernel.  Returns the
+    step p50 (seconds) of (a), without a write in flight."""
     import contextlib
     import io
     import shutil
@@ -2638,6 +2673,233 @@ def train_phase(card, smi: str) -> None:
          phase_s=time.perf_counter() - t_phase)
     train_card_vs_cpu(card, smi, cfg)
     emit("train_refusal", card=smi, **train_scan_refusal(card),
+         phase_s=time.perf_counter() - t_phase)
+    return pct(quiet, 50)
+
+
+def dist_phase(card, smi: str, train_p50_s: float) -> None:
+    """Phase ``dist``: the multi-device half on the card, with one rank.
+    (1) a one-rank NCCL group through ``distributed.group.init`` (a
+    ``file://`` store in a temporary directory) and a (1, 1) ("data",
+    "model") ``DeviceMesh`` on ``cuda``; the backend and NCCL's version
+    printed; (2) ``compressed_psum`` over every leaf of ``tinyllama-1.1b``'s
+    uncut parameter shapes (1,100,048,384 f32 values from a seeded
+    generator on the card) over the mesh's "data" group, without and then
+    with the error feedback: ``mean`` and ``new_err`` equal
+    ``compress_grads``' output and residual (``torch.equal``), the whole
+    tree's collective time (host clock around synchronised calls); (3) ``tinyllama-1.1b`` cut to 2 layers, its
+    state placed by ``train_state_shardings`` on the mesh: ``save`` of it
+    writes the arrays and template that ``save`` of the plain state writes
+    (its ``host_tree``),
+    ``restore`` with the shardings gives DTensors on ``cuda`` equal to
+    the plain ``restore``, ``remesh`` onto a one-rank ("data",) mesh keeps
+    every value; (4) ``pipeline_forward`` with one stage and M = 6 equals
+    the stage run on each microbatch; (5) the dry run: ``run_cell`` of
+    ``tinyllama-1.1b`` x ``train_4k`` (base and opt) and
+    ``deepseek-v2-236b`` x ``decode_32k`` on 16x16, and the count of phase
+    ``train``'s step (``tinyllama-1.1b`` uncut, 8 x 512 tokens, 2
+    microbatches) at one chip: its p50 must be at least ``t_compute``."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.analysis import roofline as roof
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import group, pspec
+    from repro_torch.distributed.compression import (
+        compress_grads, compressed_psum,
+    )
+    from repro_torch.distributed.pipeline import make_stage_mesh, pipeline_forward
+    from repro_torch.distributed.sharding import (
+        NamedSharding, train_state_shardings,
+    )
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_device_mesh, make_host_mesh
+    from repro_torch.models import model_zoo
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.elastic import remesh
+    from repro_torch.train.optimizer import AdamW, TrainState, warmup_cosine
+    from repro_torch.train.train_step import TrainLoopCfg, make_train_step
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if card.type == "cuda" else (lambda: None)
+    (ROOT / "build").mkdir(exist_ok=True)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="dist_smoke_",
+                                         dir=ROOT / "build"))
+    try:
+        # -- (1) the group ------------------------------------------------
+        backend = group.init(0, 1, str(work / "store"), device=card.type)
+        check(backend == group.BACKENDS[card.type],
+              f"{group.BACKENDS[card.type]} on {card.type}, got {backend}")
+        mesh = make_host_mesh(1, 1, device=card.type)
+        nccl = (".".join(map(str, torch.cuda.nccl.version()))
+                if card.type == "cuda" else None)
+        emit("dist_group", card=smi, backend=backend, nccl=nccl,
+             world=dist.get_world_size(), mesh=str(mesh))
+
+        # -- (2) compressed_psum over tinyllama's uncut tree --------------
+        cfg = get_arch(TRAIN_ARCH)
+        defs = model_zoo.get_model(cfg).param_defs(cfg)
+        shapes = [(n, d.shape) for n, d in pspec.tree_items(defs)]
+        n_values = sum(math.prod(s) for _, s in shapes)
+        check(n_values == DIST_TREE_VALUES,
+              f"{TRAIN_ARCH}'s {n_values} values")
+        gen = torch.Generator(device=card).manual_seed(0)
+        warm = torch.ones(1024, device=card)
+        compressed_psum(warm, (mesh, "data"))
+        psum_ms, host_scalar_div = {}, 0
+        errs: dict = {}
+        for fb in ("no_err", "err"):
+            total = 0.0
+            for name, shape in shapes:
+                g = torch.randn(shape, generator=gen, device=card)
+                e = errs.get(name) if fb == "err" else None
+                sync()
+                t0 = time.perf_counter()
+                mean, new_err = compressed_psum(g, (mesh, "data"), e)
+                sync()
+                total += (time.perf_counter() - t0) * 1e3
+                want, want_err = compress_grads(
+                    {"x": g}, None if e is None else {"x": e})
+                check(torch.equal(mean, want["x"])
+                      and torch.equal(new_err, want_err["x"]),
+                      f"compressed_psum == compress_grads on {name} ({fb})")
+                if fb == "no_err":
+                    amax = torch.max(torch.abs(g))
+                    host_scalar_div += int(not torch.equal(
+                        amax / 127, torch.div(amax, torch.tensor(
+                            127.0, device=card))))
+                errs[name] = new_err
+                del g, e, mean, new_err, want, want_err
+            psum_ms[fb] = total
+        del errs
+        emit("dist_psum", card=smi, arch=TRAIN_ARCH, leaves=len(shapes),
+             values=n_values, equal_compress_grads=True, tree_ms=psum_ms,
+             gb_per_s={k: 4 * n_values / 1e6 / v for k, v in psum_ms.items()},
+             leaves_where_amax_over_127_is_not_a_division=host_scalar_div)
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- (3) sharded save, restore and remesh --------------------------
+        cfg2 = dataclasses.replace(cfg, n_layers=2)
+        defs2 = model_zoo.get_model(cfg2).param_defs(cfg2)
+        params = pspec.init_params(defs2, gen, card)
+        rnd = lambda t: torch.randn(t.shape, generator=gen, device=card)
+        plain = TrainState(step=torch.tensor(7, dtype=torch.int32,
+                                             device=card),
+                           params=params,
+                           mu=pspec.tree_map(lambda t: rnd(t) * 1e-3, params),
+                           nu=pspec.tree_map(lambda t: rnd(t).abs_() * 1e-6,
+                                             params))
+        shardings = train_state_shardings(cfg2, mesh, defs2)
+        placed = remesh(plain, shardings)
+        leaves = train_leaves(placed)
+        check(all(isinstance(t, DTensor) for t in leaves.values()),
+              "every placed leaf is a DTensor")
+        ckpt.save(str(work / "sharded"), placed)
+        # what ``save`` of the plain state writes: its host tree's arrays
+        # under the same names, and its template
+        want_host = ckpt.host_tree(plain)
+        want_flat = ckpt._flatten(want_host)
+        with np.load(work / "sharded" / "arrays.npz") as z:
+            check(set(z.files) == set(want_flat) and all(
+                np.array_equal(z[k], want_flat[k]) for k in z.files),
+                "save of the sharded state writes the plain state's arrays")
+        with open(work / "sharded" / "manifest.json") as f:
+            check(json.load(f)["template"] == ckpt._tree_template(
+                want_host), "and its template")
+        del want_host, want_flat
+        restored, _ = ckpt.restore(str(work / "sharded"), shardings)
+        want, _ = ckpt.restore(str(work / "sharded"), device=card)
+        got, ref = train_leaves(restored), train_leaves(want)
+        check(got.keys() == ref.keys() and all(
+            isinstance(t, DTensor) and t.device.type == card.type
+            and torch.equal(t.full_tensor(), ref[n]) for n, t in got.items()),
+            "restore with shardings: DTensors on the card == plain restore")
+        check(all(torch.equal(ref[n], t) for n, t in
+                  train_leaves(plain).items()), "plain restore == the state")
+        one = make_device_mesh((1,), ("data",), device=card.type)
+        to_one = lambda tree: pspec.tree_map(
+            lambda s: NamedSharding(one, ("data",) if s.spec else ()), tree)
+        moved = remesh(restored, TrainState(
+            step=NamedSharding(one, ()), params=to_one(shardings.params),
+            mu=to_one(shardings.mu), nu=to_one(shardings.nu)))
+        check(all(torch.equal(t.full_tensor(), ref[n]) and t.device_mesh
+                  is one for n, t in train_leaves(moved).items()),
+              "remesh onto a one-rank ('data',) mesh keeps every value")
+        ckpt_bytes = sum(t.numel() * t.element_size() for t in ref.values())
+        del plain, placed, restored, want, moved, got, ref, leaves, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit("dist_ckpt", card=smi, arch=f"{TRAIN_ARCH} cut to 2 layers",
+             leaves=len(pspec.tree_items(defs2)),
+             bytes=ckpt_bytes, save_equal=True, restore_equal=True,
+             remesh_equal=True)
+
+        # -- (4) the pipeline with one stage --------------------------------
+        stage = make_stage_mesh(1, device=card.type)
+        Ws = torch.randn((1, 1024, 1024), generator=gen, device=card) / 32
+        mbs = torch.randn((6, 8, 1024), generator=gen, device=card)
+        fn = lambda W, x: torch.tanh(x @ W)
+        out = pipeline_forward(fn, stage)(Ws, mbs)
+        ref = torch.stack([fn(Ws[0], mbs[i]) for i in range(6)])
+        check(torch.equal(out, ref), "pipeline (1 stage, M = 6) == the "
+              "stage on each microbatch")
+        emit("dist_pipeline", card=smi, stages=1, microbatches=6,
+             equal=True)
+        del Ws, mbs, out, ref
+    finally:
+        group.destroy()
+        shutil.rmtree(work, ignore_errors=True)
+
+    # -- (5) the dry run ------------------------------------------------------
+    cells = {}
+    for arch, shape, layout in ((TRAIN_ARCH, "train_4k", "base"),
+                                (TRAIN_ARCH, "train_4k", "opt"),
+                                (LM_MLA_ARCH, "decode_32k", "base")):
+        rec = dryrun.run_cell(arch, shape, False, layout=layout)
+        r = rec["roofline"]
+        cells[f"{arch} x {shape} x {rec['mesh']}"] = {
+            "status": rec["status"], "t_trace_s": rec["t_trace_s"],
+            "counts": rec["counts"], "fits": rec["analytic_memory"]["fits"],
+            "total_gb": rec["analytic_memory"]["total_gb"],
+            "t_compute_s": r["t_compute_s"], "t_memory_s": r["t_memory_s"],
+            "t_memory_op_bytes_s": r["t_memory_hlo_s"],
+            "bottleneck": r["bottleneck"],
+            "roofline_fraction": r["roofline_fraction"],
+            "affine_rel_err": r["affine_rel_err"],
+            "affine_exact": r["affine_exact"]}
+    zoo = model_zoo.get_model(cfg)
+    model = zoo.build(cfg, pspec.abstract_params(defs))
+    opt = AdamW(lr=warmup_cosine(TRAIN_LR, 20, TRAIN_STEPS))
+    state = opt.init(model)
+    step_fn = make_train_step(cfg, opt, TrainLoopCfg(microbatches=TRAIN_MICRO))
+    batch = {k: torch.empty((TRAIN_BATCH, TRAIN_SEQ), dtype=torch.int32,
+                            device="meta") for k in ("tokens", "labels")}
+    t0 = time.perf_counter()
+    with roof.OpCounter() as counter:
+        step_fn(state, batch, None)
+    t_count = time.perf_counter() - t0
+    terms = roof.RooflineTerms(
+        flops_per_chip=counter.flops, hbm_bytes_per_chip=counter.bytes,
+        collective_bytes_per_chip=None, chips=1,
+        model_flops=6.0 * cfg.param_count() * TRAIN_BATCH * TRAIN_SEQ)
+    check(train_p50_s >= terms.t_compute,
+          f"phase train's step p50 {train_p50_s} s is at least the counted "
+          f"compute bound {terms.t_compute} s")
+    emit("dist_dryrun", card=smi, cells=cells,
+         train_step={"arch": TRAIN_ARCH, "batch": TRAIN_BATCH,
+                     "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
+                     "t_trace_s": t_count, "counts": counter.as_dict(),
+                     "t_compute_s": terms.t_compute,
+                     "t_memory_op_bytes_s": terms.t_memory,
+                     "p50_s": train_p50_s,
+                     "p50_over_t_compute": train_p50_s / terms.t_compute,
+                     "p50_over_t_memory": train_p50_s / terms.t_memory,
+                     "useful_flops_fraction": terms.useful_flops_fraction},
          phase_s=time.perf_counter() - t_phase)
 
 
@@ -4499,7 +4761,8 @@ def main() -> int:
     lm_moe_phase(card, smi)
     lm_mla_phase(card, smi)
     lm_audio_phase(card, smi)
-    train_phase(card, smi)
+    train_p50_s = train_phase(card, smi)
+    dist_phase(card, smi, train_p50_s)
     # chunk_scan's row: RWKV6's bonus form (phase lm) and Zamba2's GLA
     # form (phase lm_hybrid), each path's launches counted from zero
     lm = dict(lm, launches=lm["launches"] + gla["launches"],

@@ -1,2 +1,4 @@
-"""Parameter declarations and flow-batch sharding (port of the parameter
-half and the flow half of ``repro.distributed``)."""
+"""The multi-device half and the parameter declarations (port of
+``repro.distributed``): sharding rules as DTensor placements, the process
+group, ``compressed_psum`` and the GPipe pipeline over
+``torch.distributed``, and flow-batch sharding."""

@@ -1,14 +1,17 @@
-"""Gradient compression, the train step's half (port of the jit-level half
-of ``repro.distributed.compression``).
+"""Gradient compression (port of ``repro.distributed.compression``).
 
-int8 quantisation per tensor (symmetric, max-abs scale) with the
-quantisation residual carried into the next step (error feedback,
-arXiv:1901.09847), so the compression is unbiased over time.
-``torch.round`` rounds half to even, as ``jnp.round`` does, so the
-quantised values and the residuals equal JAX's bit for bit.
+At 2+ pods the gradient all-reduce crosses the slow inter-pod link; the
+exchange is compressed: int8 quantisation per tensor (symmetric, max-abs
+scale), the quantised values summed, dequantised, and the quantisation
+residual carried into the next step (error feedback, arXiv:1901.09847),
+so the compression is unbiased over time.  ``torch.round`` rounds half to
+even, as ``jnp.round`` does, so the quantised values and the residuals
+equal JAX's bit for bit.
 
-``compressed_psum``, the wire-level collective under ``shard_map``, is
-part of the multi-device half (ROADMAP A.11(f)).
+:func:`compressed_psum` is the wire-level collective (JAX's runs under
+``shard_map``; here every rank of the group calls it);
+:func:`compress_grads` is the train step's transform, the same numerics
+with the sum left to the caller.
 """
 from __future__ import annotations
 
@@ -28,6 +31,38 @@ def _quantize(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def _dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
+
+
+@torch.no_grad()
+def compressed_psum(g: torch.Tensor, group, err: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """int8-compressed mean of ``g`` over ``group`` with error feedback.
+
+    Collective: every rank of ``group`` calls it.  ``group`` is a process
+    group, or a ``(DeviceMesh, axis name)`` pair (that axis's group of this
+    rank).  JAX's steps in JAX's order: the group agrees on one scale (an
+    all-reduce MAX of the local max-abs), quantises, keeps the residual,
+    sums the int8 levels as int32 (an all-reduce SUM) and divides by the
+    group's size.  Returns ``(mean, new_err)``, f32."""
+    import torch.distributed as dist
+
+    if isinstance(group, tuple):
+        mesh, axis = group
+        group = mesh.get_group(axis)
+    gf = g.to(torch.float32)
+    if err is not None:
+        gf = gf + err
+    amax = torch.max(torch.abs(gf))
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp(amax / _LEVELS, min=1e-30)
+    q = torch.clamp(torch.round(gf / scale), -_LEVELS, _LEVELS)
+    new_err = gf - q * scale
+    total = q.to(torch.int32)
+    dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+    # the size as a tensor on the data's device, so the division is a
+    # division on the card too (a host scalar would be a reciprocal there)
+    n = torch.tensor(float(dist.get_world_size(group)), device=gf.device)
+    return total.to(torch.float32) * scale / n, new_err
 
 
 @torch.no_grad()

@@ -1,2 +1,2 @@
-"""Command-line launchers and the flow mesh (port of ``repro.launch``):
-serving, training and ``make_flow_mesh`` so far."""
+"""Command-line launchers and meshes (port of ``repro.launch``): serving,
+training, the dry run, and the flow, abstract and runtime meshes."""

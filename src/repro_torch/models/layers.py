@@ -5,10 +5,23 @@ embeddings, logits and the loss.
 
 The JAX dtype steps are kept: products run in bf16 (``COMPUTE_DTYPE``,
 each weight cast at its product), attention scores, the softmax, norm
-statistics and the loss in f32, parameters stay f32.  ``shard``,
-``set_layout`` and ``scan_layers`` have no counterpart: the port runs on
-one card and loops over the layers in Python.  :class:`LMModule` holds a
-model's parameter tree and the bf16 copies its products read.
+statistics and the loss in f32, parameters stay f32.
+:class:`LMModule` holds a model's parameter tree and the bf16 copies its
+products read.
+
+Four JAX functions have no counterpart, each for a reason:
+
+* ``shard`` (a sharding constraint on an activation inside the
+  partitioned program) and ``set_layout`` (which rewrites the module
+  global ``BATCH_AXES`` the constraints read): the port runs a model whole
+  on one card and partitions no program, so there is nothing to
+  constrain; the layout the sharding rules need is an argument of
+  ``distributed.sharding.batch_spec`` and ``cache_spec`` instead;
+* ``scan_layers``: XLA compiles a scan's body once, while eager PyTorch
+  gains nothing from it, so the models loop over the layers in Python;
+* remat (``jax.checkpoint`` of each layer): autograd keeps what the
+  backward needs, and the port's trainer fits its one card without
+  recomputation (the dry run's activation bytes keep JAX's remat model).
 """
 from __future__ import annotations
 

@@ -82,11 +82,18 @@ def _route(xc: torch.Tensor, router: torch.Tensor, m: MoECfg, E: int):
     return probs, gate, eidx
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` (int64) without its range check: on a real
+    device ``F.one_hot`` reads the indices' min and max to the host, one
+    device sync a call; the indices here are in range by construction."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+
+
 def _aux(probs: torch.Tensor, eidx: torch.Tensor, m: MoECfg,
          E: int) -> torch.Tensor:
     """The Switch load-balance loss, E * sum_e f_e * p_e, over all tokens."""
     me = probs.reshape(-1, E).mean(dim=0)
-    ce = F.one_hot(eidx, E).float().sum(dim=-2).reshape(-1, E).mean(dim=0)
+    ce = _one_hot(eidx, E).float().sum(dim=-2).reshape(-1, E).mean(dim=0)
     return (me * ce).sum() * m.n_experts
 
 
@@ -113,11 +120,11 @@ def _moe_decode_einsum(p: dict, x: torch.Tensor, m: MoECfg, E: int):
     xf = x.reshape(N, D).to(COMPUTE_DTYPE)
     probs, gate, eidx = _route(xf, p["router"], m, E)        # (N, k)
     C = min(N, max(int(N * k / m.n_experts * 2.0), 16))
-    oh = F.one_hot(eidx, E).to(torch.int32)                  # (N, k, E)
+    oh = _one_hot(eidx, E).to(torch.int32)                  # (N, k, E)
     pos = _positions(oh.reshape(N * k, E)).reshape(N, k)
     keep = pos < C
     # dispatch mask (N, k, E, C), combined over k: (N, E, C)
-    slot = F.one_hot(torch.where(keep, pos, C - 1).long(), C).to(torch.int32)
+    slot = _one_hot(torch.where(keep, pos, C - 1), C).to(torch.int32)
     disp = oh[..., None] * slot[:, :, None, :]
     disp = disp * keep[:, :, None, None].to(torch.int32)
     # parity trap, dtypes: the gated combine weights are f32 until the
@@ -162,7 +169,7 @@ def moe_ffn(p: dict, x: torch.Tensor, m: MoECfg,
     aux = _aux(probs, eidx, m, E)
 
     # capacity assignment, a group a sequence
-    oh = F.one_hot(eidx, E).to(torch.int32)                  # (B, T, k, E)
+    oh = _one_hot(eidx, E).to(torch.int32)                  # (B, T, k, E)
     pos = _positions(oh.reshape(B, T * k, E)).reshape(B, T, k)
     keep = pos < C
 
