@@ -11,7 +11,7 @@ exits nonzero; nothing is caught and passed over):
    process per source, all at once); registers, stack and spills of the
    hop kernel, kernel A and each tick-kernel instantiation;
 2. main    -- ``make_dataset("d2", 6000)`` -> ``window_features`` (kernel A,
-   one launch per window and batch of flows)
+   one launch a call over every window, one shared slot row)
    -> ``train_partitioned_dt([3, 3, 3], k=4)`` -> ``window_packets`` of the
    test split tiled to 2^20 flows -> ``Engine.from_model(pdt).run`` on the
    card (the hop kernel, one launch per partition; no launch of kernel A
@@ -24,13 +24,15 @@ exits nonzero; nothing is caught and passed over):
    and in survivor mode on the survivors of that carry against the plain
    compacted hop and ``engine_hop_ref``, done flows' register rows kept,
    and with rows and a count out of range; kernel A at the hop's shape
-   and at each launch of ``window_features`` on the training split;
+   and at the one launch of ``window_features`` on the training split;
    kernel A over every registry feature and the hop kernel on a tile of
    subnormal packet fields, so no flush-to-zero can slip in), and the
    engine's ``cuda`` walk against its ``fused`` walk, all with
    ``torch.equal`` (zero tolerance);
 4. times   -- CUDA-event medians of each kernel and its plain version beside
-   the least time the card could take (bytes over 3.35 TB/s), and
+   the least time the card could take (bytes over 3.35 TB/s), the hop
+   kernel's graph-replay time also under the warp match it does not run
+   at L = 8 (``WARP_MATCH_MIN_LEAVES``), and
    ``Engine.run`` flows/s from numpy, from a device-resident tensor and
    from one without the trace, beside the two-kernel walk it replaced
    (kernel A, the SID dispatch and kernel B a hop) and the fetch alone;
@@ -72,22 +74,29 @@ exits nonzero; nothing is caught and passed over):
    the tick engine ``tick_engine="auto"`` picks at phase ``serve``'s table;
 4e. fit    -- the trainer and the DSE's batched evaluator, the third
    path, on ``make_dataset("d2", 2^17, seed=1)`` split 70/30 (91,750 /
-   39,322 flows): ``window_features(train, 3)`` on kernel A (launches
-   counted; each launch against its plain version on the same views, all
-   of them timed as the path makes them); for (3, 3, 3) at k = 4 and
+   39,322 flows): ``window_features(train, 3)`` on kernel A (one launch
+   a call, counted; held against its plain version, and timed); for
+   (3, 3, 3) at k = 4 and
    (10, 10, 10) at k = 6, ``train_partitioned_dt(trainer="torch")`` on
    the card equals the numpy trainer subtree for subtree, node for node,
    with each trainer's wall time, host syncs and seconds per partition,
-   a traced run's device busy time and peak memory.  Then 4
+   a traced run's device busy time and peak memory.  ``Engine.run`` of
+   the (10, 10, 10) / k = 6 model (deep tables: the hop kernel's warp
+   match) at the test split and tiled to 2^20 equals ``pdt.predict``;
+   the hop kernel on its tables equals the plain hop (dense with and
+   without the trace, survivor mode); its walk timed, at 2^20 also under
+   the serial match it does not run.
+   Then 4
    configurations drawn from ``SearchSpace()`` (seed 0) on 6 windows:
    ``evaluate_batch`` trains them on the card and equals the serial
    evaluator; on its models ``fleet_predict`` of the test windows equals
    each ``pdt.predict``, ``Engine.run`` and the CPU plain hop, with one
    hop-kernel launch a model's partition and none of kernels A and B;
    times of ``fleet_predict``, its hop launches (events, graph replay)
-   and the plain hops beside their bound (from the flows still live at
-   each hop), M x ``Engine.run`` and M x ``pdt.predict``, at the test
-   split and tiled to 2^20 flows.  Last, on ``make_dataset("d2",
+   and the plain hops beside their bound
+   (from the flows still live at each hop), each model's walk alone
+   beside its (S, k, T, L) and live flows a hop, M x ``Engine.run`` and
+   M x ``pdt.predict``, at the test split and tiled to 2^20 flows.  Last, on ``make_dataset("d2",
    1200)``, a seeded ``bayes_search`` with the torch trainer and
    ``evaluate_batch`` gives the serial numpy history;
 5. serve   -- live serving, the second path: the dataset of phase
@@ -631,12 +640,47 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def feature_window_bound(n: int, w: int, kk: int) -> tuple[float, str]:
+def feature_window_bound(n: int, w: int, kk: int,
+                         shared_rows: bool = False) -> tuple[float, str]:
     """Kernel A's least time: the (n, w, 6) window and four (n, kk) slot
-    rows read once, the (n, kk) registers written once; 3 f32 multiplies
-    and 3 adds a packet and slot."""
-    n_bytes = n * w * 6 * 4 + n * kk * 4 * 4 + n * kk * 4
+    rows (one (1, kk) row each with ``shared_rows``) read once, the
+    (n, kk) registers written once; 3 f32 multiplies and 3 adds a packet
+    and slot."""
+    n_rows = 1 if shared_rows else n
+    n_bytes = n * w * 6 * 4 + n_rows * kk * 4 * 4 + n * kk * 4
     return bound_ms(n_bytes, n * kk * w * 6)
+
+
+def under_match(match: str, fn):
+    """``fn()`` with the hop kernel's match forced to ``match``
+    (``"serial"``: one thread a flow; ``"warp"``: a warp a flow) through
+    ``engine_hop.WARP_MATCH_MIN_LEAVES``, restored after."""
+    from repro_torch.kernels import engine_hop as eh
+    keep = eh.WARP_MATCH_MIN_LEAVES
+    eh.WARP_MATCH_MIN_LEAVES = 1 if match == "warp" else 1 << 30
+    try:
+        return fn()
+    finally:
+        eh.WARP_MATCH_MIN_LEAVES = keep
+
+
+def walk_bound(eng, B: int, W: int, exit_p=None,
+               with_trace: bool = True) -> tuple[float, str]:
+    """The least time of one walk of ``eng``'s tables over B flows: each
+    hop ``p`` reads the (W, 6) windows and the carry (17 bytes a flow,
+    read and written) of the flows it must walk (all of them with the
+    trace, else those live entering it: ``exit_p`` < 0 or >= p) and
+    writes their k registers with the trace; the tables are read once;
+    3 f32 multiplies and 3 adds a packet and slot walked."""
+    n_bytes = n_ops = 0
+    k = eng.tables.dev.slot_op.shape[1]
+    for p in range(eng.tables.n_partitions):
+        n = B if with_trace else int(((exit_p < 0) | (exit_p >= p)).sum())
+        n_bytes += n * (W * 6 * 4 + 17 * 2) + (B * k * 4 if with_trace
+                                                 else 0)
+        n_ops += n * k * W * 6
+    n_bytes += sum(t.numel() * t.element_size() for t in eng.tables.dev)
+    return bound_ms(n_bytes, n_ops)
 
 
 def same_models(a, b) -> bool:
@@ -3523,18 +3567,25 @@ def tune_phase(card, eng, wp: np.ndarray, oracle: tuple, profiles: dict,
             "phase_s": time.perf_counter() - t_phase}
 
 
-def window_feature_calls(wp, rows, batch: int) -> list[tuple]:
-    """The kernel-A calls ``window_features`` makes for the packets ``wp``
-    (n, p, W, 6) on the card: one a flow batch of ``batch`` and window, on
-    the same strided views and slot rows (``rows(n, device)``).  Returns
-    their argument tuples."""
+def window_feature_call(wp, rows) -> tuple:
+    """The kernel-A call ``window_features`` makes for the packets ``wp``
+    (n, p, W, 6) on the card: one over the n * p windows, under one slot
+    row shared by every flow (``rows(1, device)``).  Returns its
+    arguments."""
     n, p = wp.shape[:2]
-    calls = []
-    for lo in range(0, n, batch):
-        hi = min(lo + batch, n)
-        r = rows(hi - lo, wp.device)
-        calls += [(wp[lo:hi, w], *r) for w in range(p)]
-    return calls
+    return (wp.view(n * p, *wp.shape[2:]), *rows(1, wp.device))
+
+
+def in_slices(fn, args, n: int = 32768):
+    """``fn`` (kernel A's plain version) on slices of ``n`` flows of the
+    window view ``args[0]`` under the slot rows ``args[1:]`` (shared, or
+    sliced with it), concatenated: bounds the plain version's memory."""
+    import torch
+    B = args[0].shape[0]
+    return torch.cat([fn(args[0][lo:lo + n],
+                         *(r if r.shape[0] == 1 else r[lo:lo + n]
+                           for r in args[1:]))
+                      for lo in range(0, B, n)])
 
 
 def fleet_bound(exit_p: np.ndarray, W: int, engs) -> dict:
@@ -3581,14 +3632,23 @@ def fit_phase(card, ds) -> dict:
     each step and read after it; ``steps_s`` gives each step's seconds.
 
     Training features: ``window_features(train, 3)`` (kernel A, one
-    launch a window and flow batch; no hop or kernel B launch); each of
-    those launches against its plain version on the same views, and all
-    of them timed as the path makes them.  For each of ``FIT_CONFIGS``:
+    launch a call; no hop or kernel B launch); that launch against its
+    plain version (in slices of windows, which bounds its memory), and
+    timed.  For each of ``FIT_CONFIGS``:
     ``train_partitioned_dt(trainer="torch")`` equals ``trainer="numpy"``
     subtree for subtree (gate); the wall time of each trainer (the torch
     one after a traced run of the card's activity alone, which gives its
     device busy time), its host syncs and host seconds per partition, and
     its peak device memory above what was held.
+
+    The deep model ((10, 10, 10) / k = 6): ``Engine.run`` at the test
+    split and tiled to B_MAIN equals ``pdt.predict``, one hop launch a
+    partition; the hop kernel on its tables against the plain hop on hop
+    1 from random SIDs with done flows (dense with and without the
+    trace, survivor mode), every carry field, the registers and the
+    survivors word; its walk (with the trace, as ``Engine.run`` walks)
+    by events and graph replay beside its bound, and at B_MAIN also under
+    the serial match, which it does not run.
 
     The DSE fleet: ``FLEET_BATCH`` configurations drawn from
     ``SearchSpace()`` with ``FLEET_SEED``, on windows of
@@ -3599,8 +3659,11 @@ def fit_phase(card, ds) -> dict:
     ``Engine.run``, and the same call on CPU tensors (the plain hop); one
     hop-kernel launch a model's partition and none of kernels A and B.
     Times: ``fleet_predict`` (host clock, from numpy and from a device
-    tensor), its hop launches (CUDA events; device time by graph replay)
-    and the same walks on the plain hop, beside their bound, M x
+    tensor), its hop launches (CUDA events; device time by graph replay),
+    each model's walk alone by graph replay beside its tables'
+    (S, k, T, L), its bound and the flows live
+    entering each hop, and the same walks on the plain hop, beside their
+    bound, M x
     ``Engine.run`` and M x ``pdt.predict``, at the test split and tiled
     to B_MAIN flows.
 
@@ -3615,13 +3678,13 @@ def fit_phase(card, ds) -> dict:
     from repro_torch.core.inference import Engine, partition_walk
     from repro_torch.core.partition import train_partitioned_dt
     from repro_torch.flows.synthetic import make_dataset
-    from repro_torch.flows.windows import _FLOW_BATCH as fw_batch
     from repro_torch.flows.windows import (
         _all_feature_rows, window_features, window_packets,
     )
     from repro_torch.kernels import dt_traverse, ref
     from repro_torch.kernels import engine_hop as eh
     from repro_torch.kernels import feature_window as fw
+    from repro_torch.kernels.compaction import compact_perm
 
     def zero_counts():
         fw.launches = dt_traverse.launches = eh.launches = 0
@@ -3649,31 +3712,30 @@ def fit_phase(card, ds) -> dict:
     features_s = time.perf_counter() - t0
     feat_launches = counts()
     xtr = torch.from_numpy(window_packets(tr, 3)).to(card)
-    a_calls = window_feature_calls(xtr, _all_feature_rows, fw_batch)
-    check(feat_launches == {"feature_window": len(a_calls),
-                            "dt_traverse": 0, "engine_hop": 0},
-          f"window_features: one kernel A launch a window and flow batch, "
-          f"got {feat_launches}")
-    for args in a_calls:
-        check(torch.equal(fw.feature_window_kernel(*args),
-                          ref.feature_window_ref(*args)),
-              f"kernel A == plain at B={args[0].shape[0]}, k=41")
-    a_ms = cuda_ms(lambda: [fw.feature_window_kernel(*a) for a in a_calls],
-                   reps=5)
-    a_graph_ms = graph_ms(lambda: [fw.feature_window_kernel(*a)
-                                   for a in a_calls], 1, reps=3)
-    a_plain_ms = cuda_ms(lambda: [ref.feature_window_ref(*a)
-                                  for a in a_calls], reps=2, warmup=1)
-    a_bound, a_by = feature_window_bound(3 * tr.n_flows, xtr.shape[2], 41)
-    batch_sizes = sorted({a[0].shape[0] for a in a_calls}, reverse=True)
+    a_args = window_feature_call(xtr, _all_feature_rows)
+    check(feat_launches == {"feature_window": 1, "dt_traverse": 0,
+                            "engine_hop": 0},
+          f"window_features: one kernel A launch a call, got "
+          f"{feat_launches}")
+    a_out = fw.feature_window_kernel(*a_args)
+    check(torch.equal(a_out, in_slices(ref.feature_window_ref, a_args)),
+          f"kernel A == plain at B={a_args[0].shape[0]}, k=41, one shared "
+          f"slot row")
+    a_ms = cuda_ms(lambda: fw.feature_window_kernel(*a_args), reps=5)
+    a_graph_ms = graph_ms(lambda: fw.feature_window_kernel(*a_args), 1,
+                          reps=3)
+    a_plain_ms = cuda_ms(lambda: in_slices(ref.feature_window_ref, a_args),
+                         reps=2, warmup=1)
+    a_bound, a_by = feature_window_bound(3 * tr.n_flows, xtr.shape[2], 41,
+                                         shared_rows=True)
     out["kernel_a"] = {
-        "shape": f"{len(a_calls)} launches of B in {batch_sizes}, "
-                 f"W={xtr.shape[2]}, k=41 ({tr.n_flows} flows x 3 windows)",
+        "shape": f"1 launch of B={a_args[0].shape[0]}, W={xtr.shape[2]}, "
+                 f"k=41 ({tr.n_flows} flows x 3 windows), one shared row",
         "window_features_launches": feat_launches["feature_window"],
         "window_features_s": features_s, "ms": a_ms, "graph_ms": a_graph_ms,
-        "ms_per_launch": a_ms / len(a_calls), "plain_ms": a_plain_ms,
+        "plain_ms": a_plain_ms, "plain_ms_in": "slices of 32,768 windows",
         "bound_ms": a_bound, "bound_by": a_by, "equal": True}
-    del xtr, a_calls
+    del xtr, a_args, a_out
     step("features", t_step)
 
     # -- the trainers ----------------------------------------------------
@@ -3733,6 +3795,98 @@ def fit_phase(card, ds) -> dict:
             "peak_above_held_gb": peak_gb,
             "profile": prof, "equal_numpy": True}
         step(f"trainers {sizes}/k={k}", t_step)
+    names = ("labels", "recircs", "exit_partition")
+
+    # -- Engine.run on the deep model: the hop kernel on deep tables -----
+    t_step = time.perf_counter()
+    e_deep = Engine.from_model(p_t)              # (10, 10, 10) / k = 6
+    x3 = torch.from_numpy(window_packets(te, 3)).to(card)
+    reps3 = -(-B_MAIN // x3.shape[0])
+    x3_big = x3.repeat(reps3, 1, 1, 1)[:B_MAIN]
+    want = p_t.predict(window_features(te, 3), return_trace=True)
+    zero_counts()
+    run = e_deep.run(x3)
+    deep_launches = counts()
+    check(deep_launches == {"engine_hop": 3, "feature_window": 0,
+                            "dt_traverse": 0},
+          f"deep Engine.run: one hop launch a partition, got "
+          f"{deep_launches}")
+    run_big = e_deep.run(x3_big)
+    for name, w in zip(names, want):
+        check(np.array_equal(getattr(run, name), w),
+              f"deep Engine.run {name} == pdt.predict")
+        check(np.array_equal(getattr(run_big, name),
+                             np.tile(w, reps3)[:B_MAIN]),
+              f"deep Engine.run {name} at B_MAIN == the tiled predict")
+    del run, run_big
+    # the hop kernel on these tables against its plain versions, on hop 1
+    # from random SIDs (-1 among them) with a third of the flows done:
+    # dense with the trace, dense without it (done flows not walked, the
+    # survivors word counted) and in survivor mode
+    dev_d = e_deep.tables.dev
+    S_d, k_d, T_d = dev_d.thresholds.shape
+    L_d = dev_d.leaf_lo.shape[1]
+    n_sub = e_deep.tables.n_subtrees
+    gd = torch.Generator(device=card).manual_seed(25)
+    Bt = x3.shape[0]
+    done0 = torch.rand(Bt, generator=gd, device=card) < 0.3
+    carry0 = (torch.randint(-1, S_d, (Bt,), generator=gd, device=card,
+                            dtype=torch.int32), done0,
+              torch.where(done0, 0, -1).to(torch.int32),
+              torch.zeros(Bt, dtype=torch.int32, device=card),
+              torch.where(done0, 0, -1).to(torch.int32))
+    rows_s, n_s = compact_perm(done0)
+    deep_checks = []
+    for mode, with_regs in (("dense", True), ("dense", False),
+                            ("survivors", True), ("survivors", False)):
+        got_c, want_c = (tuple(t.clone() for t in carry0) for _ in range(2))
+        regs_k, regs_p = ((torch.full((Bt, k_d), 3.5, device=card)
+                           if with_regs else None) for _ in range(2))
+        kw = (dict(rows=rows_s, n_active=n_s) if mode == "survivors" else
+              {})
+        left_k, left_p = ((torch.full((1,), Bt, dtype=torch.int32,
+                                      device=card)
+                           if mode == "dense" else None) for _ in range(2))
+        eh.engine_hop_kernel(x3[:, 1], got_c, dev_d, 1, n_subtrees=n_sub,
+                             regs_out=regs_k, survivors_out=left_k, **kw)
+        eh.engine_hop_plain(x3[:, 1], want_c, dev_d, 1, n_subtrees=n_sub,
+                            regs_out=regs_p, survivors_out=left_p, **kw)
+        torch.cuda.synchronize()
+        what = f"hop kernel [{mode}, regs {with_regs}, L={L_d}]"
+        for name, a, b in zip(("sid", "done", "labels", "recircs",
+                               "exit_p"), got_c, want_c):
+            check(torch.equal(a, b), f"{what}.{name} == plain")
+        check(not with_regs or torch.equal(regs_k, regs_p),
+              f"{what}.regs == plain")
+        check(left_k is None or torch.equal(left_k, left_p),
+              f"{what}.survivors == plain")
+        deep_checks.append(what)
+    check(bool((carry0[0][~done0] == -1).any()),
+          "the deep check reads row S - 1")
+
+    def deep_walk(xx, hop=eh.engine_hop_kernel):
+        return partition_walk(xx, dev_d, n_subtrees=n_sub, n_partitions=3,
+                              with_trace=True, hop=hop)
+
+    deep = {"S": S_d, "k": k_d, "T": T_d, "L": L_d,
+            "match": "warp" if L_d >= eh.WARP_MATCH_MIN_LEAVES else "serial",
+            "launches": deep_launches, "checked": deep_checks,
+            "equal_predict": True}
+    for tag, xx in (("test_split", x3), ("tiled_2^20", x3_big)):
+        bound, by = walk_bound(e_deep, xx.shape[0], xx.shape[2])
+        deep[tag] = {
+            "B": xx.shape[0], "W": xx.shape[2],
+            "ms": cuda_ms(lambda: deep_walk(xx), reps=5),
+            "graph_ms": graph_ms(lambda: deep_walk(xx), 2, reps=3),
+            "bound_ms": bound, "bound_by": by}
+    deep["test_split"]["plain_ms"] = cuda_ms(
+        lambda: deep_walk(x3, eh.engine_hop_plain), reps=2, warmup=1)
+    # the match not run here, the evidence for WARP_MATCH_MIN_LEAVES
+    deep["tiled_2^20"]["serial_match_graph_ms"] = under_match(
+        "serial", lambda: graph_ms(lambda: deep_walk(x3_big), 2, reps=3))
+    out["deep_engine_run"] = deep
+    del x3, x3_big, carry0
+    step("deep Engine.run", t_step)
 
     # -- the DSE fleet: evaluate_batch == serial, its models scored ------
     t_step = time.perf_counter()
@@ -3747,9 +3901,8 @@ def fit_phase(card, ds) -> dict:
     zero_counts()
     Xd_tr = window_features(tr, P)
     Xd_te = window_features(te, P)
-    check(counts()["feature_window"] == P * (-(-tr.n_flows // fw_batch)
-                                             + -(-te.n_flows // fw_batch)),
-          "kernel A computes the DSE windows")
+    check(counts()["feature_window"] == 2,
+          "kernel A computes the DSE windows, one launch a call")
     wp = window_packets(te, P)
     step("fleet windows", t_step)
 
@@ -3793,7 +3946,6 @@ def fit_phase(card, ds) -> dict:
                              "dt_traverse": 0},
           f"fleet_predict: one hop-kernel launch a model's partition "
           f"({hops}) and no kernel A or B, got {fleet_launches}")
-    names = ("labels", "recircs", "exit_partition")
     engs = [Engine.from_model(p) for p in pdts]
     for i, (p, eng) in enumerate(zip(pdts, engs)):
         want = p.predict(Xd_te[:, :p.n_partitions], return_trace=True)
@@ -3818,12 +3970,33 @@ def fit_phase(card, ds) -> dict:
               f"fleet {name} at B_MAIN == the tiled test split")
     step("fleet gates", t_step)
 
-    def walks(xx, hop):
+    def walks(xx, hop, engines=None):
         """fleet_predict's hop launches alone: no pack, no fetch."""
         return [partition_walk(xx, e.tables.dev,
                                n_subtrees=e.tables.n_subtrees,
                                n_partitions=e.tables.n_partitions,
-                               with_trace=False, hop=hop) for e in engs]
+                               with_trace=False, hop=hop)
+                for e in engines or engs]
+
+    def model_times(xx, exit_p):
+        """Each model's walk alone by graph replay beside its tables'
+        shape and the flows live entering each of its hops (the flows
+        the hop walks)."""
+        rows = []
+        for m, e in enumerate(engs):
+            S_m, k_m, T_m = e.tables.dev.thresholds.shape
+            one = lambda: walks(xx, eh.engine_hop_kernel, [e])
+            bound, by = walk_bound(e, xx.shape[0], W, exit_p[m],
+                                   with_trace=False)
+            rows.append({
+                "S": S_m, "k": k_m, "T": T_m,
+                "L": e.tables.dev.leaf_lo.shape[1],
+                "P": e.tables.n_partitions,
+                "live": [int(((exit_p[m] < 0) | (exit_p[m] >= p)).sum())
+                         for p in range(e.tables.n_partitions)],
+                "graph_ms": graph_ms(one, 2, reps=3),
+                "bound_ms": bound, "bound_by": by})
+        return rows
 
     def times(xx, Xd, exit_p, reps_, plain_reps):
         return {
@@ -3839,6 +4012,7 @@ def fit_phase(card, ds) -> dict:
                 lambda: walks(xx, eh.engine_hop_kernel), reps=reps_),
             "hop_launches_graph_ms": graph_ms(
                 lambda: walks(xx, eh.engine_hop_kernel), 2, reps=reps_),
+            "models": model_times(xx, exit_p),
             "plain_hops_ms": cuda_ms(
                 lambda: walks(xx, eh.engine_hop_plain), reps=plain_reps,
                 warmup=plain_reps - 1),
@@ -3936,7 +4110,6 @@ def main() -> int:
     from repro_torch.flows.synthetic import (
         FlowDataset, make_dataset, make_packet_stream,
     )
-    from repro_torch.flows.windows import _FLOW_BATCH as fw_batch
     from repro_torch.flows.windows import (
         _all_feature_rows, window_features, window_packets,
     )
@@ -3982,10 +4155,8 @@ def main() -> int:
     setup_s = time.perf_counter() - t0
     eng = Engine.from_model(pdt)
     fw_setup = fw.launches
-    n_batches = -(-tr.n_flows // fw_batch)
-    check(fw_setup == 3 * n_batches,
-          f"window_features: one launch per window and flow batch, got "
-          f"{fw_setup}")
+    check(fw_setup == 1, f"window_features: one kernel-A launch a call, "
+          f"got {fw_setup}")
     t0 = time.perf_counter()
     res = eng.run(wp)                                   # the hop kernel
     run_s = time.perf_counter() - t0
@@ -3998,9 +4169,13 @@ def main() -> int:
     L = eng.tables.dev.leaf_lo.shape[1]
     P, W = wp.shape[1], wp.shape[2]
     # the oracle sees features from the plain version, not from kernel A
-    labels, recircs, exit_p = pdt.predict(window_features(te, 3,
-                                                          device="cpu"),
-                                          return_trace=True)
+    Xw_te = window_features(te, 3, device="cpu")
+    labels, recircs, exit_p = pdt.predict(Xw_te, return_trace=True)
+    fw_before = fw.launches
+    check(np.array_equal(window_features(te, 3).view(np.int32),
+                         Xw_te.view(np.int32))
+          and fw.launches == fw_before + 1,
+          "window_features on the card == on the CPU, one kernel-A launch")
     tile = lambda a: np.tile(a, reps)[:B_MAIN]
     main_oracle = (tile(labels), tile(recircs), tile(exit_p))
     for name, want in (("labels", labels), ("recircs", recircs),
@@ -4050,13 +4225,12 @@ def main() -> int:
                     fw.feature_window_kernel(*a_args),
                     ref.feature_window_ref(*a_args))
     xtr = torch.from_numpy(window_packets(tr, 3)).to(card)
-    # kernel A's calls in window_features of the training split
-    a41_calls = window_feature_calls(xtr, _all_feature_rows, fw_batch)
-    for i, a41_args in enumerate(a41_calls):
-        err_a = max(err_a, compare(
-            f"feature_window[B={a41_args[0].shape[0]},W={xtr.shape[2]},"
-            f"k=41]#{i}", fw.feature_window_kernel(*a41_args),
-            ref.feature_window_ref(*a41_args)))
+    # kernel A's call in window_features of the training split
+    a41_args = window_feature_call(xtr, _all_feature_rows)
+    err_a = max(err_a, compare(
+        f"feature_window[B={a41_args[0].shape[0]},W={xtr.shape[2]},k=41,"
+        f"one shared row]", fw.feature_window_kernel(*a41_args),
+        ref.feature_window_ref(*a41_args)))
 
     regs = fw.feature_window_kernel(*a_args)
     bb = 128
@@ -4170,7 +4344,7 @@ def main() -> int:
     for fld in (PKT_TS, PKT_SIZE, PKT_IAT):
         x_sub[..., fld] = sub_vals[torch.randint(
             0, sub_vals.numel(), x_sub.shape[:3], generator=gs)].to(card)
-    sub41 = (x_sub[:, 0], *_all_feature_rows(n_tile, card))
+    sub41 = (x_sub[:, 0], *_all_feature_rows(1, card))
     regs41 = fw.feature_window_kernel(*sub41)
     err_a = max(err_a, compare("feature_window[subnormal,k=41]", regs41,
                                ref.feature_window_ref(*sub41)))
@@ -4206,10 +4380,9 @@ def main() -> int:
     # -- 4. times -------------------------------------------------------------
     ms_a = cuda_ms(lambda: fw.feature_window_kernel(*a_args))
     plain_a = cuda_ms(lambda: ref.feature_window_ref(*a_args))
-    ms_a41 = cuda_ms(lambda: [fw.feature_window_kernel(*a)
-                              for a in a41_calls])
-    plain_a41 = cuda_ms(lambda: [ref.feature_window_ref(*a)
-                                 for a in a41_calls])
+    ms_a41 = cuda_ms(lambda: fw.feature_window_kernel(*a41_args))
+    graph_a41 = graph_ms(lambda: fw.feature_window_kernel(*a41_args), 5)
+    plain_a41 = cuda_ms(lambda: ref.feature_window_ref(*a41_args))
     ms_b = cuda_ms(lambda: dt_traverse.dt_traverse_kernel(*b_args,
                                                           block_b=bb))
     plain_b = cuda_ms(lambda: dt_traverse.dt_traverse_blocks_ref(
@@ -4219,7 +4392,7 @@ def main() -> int:
 
     bound_a, by_a = feature_window_bound(B_MAIN, W, k)
     bound_a41, by_a41 = feature_window_bound(3 * tr.n_flows, xtr.shape[2],
-                                             41)
+                                             41, shared_rows=True)
 
     # the hop kernel at hop 1 of the main path, writing its trace row; the
     # carry is restored from carry0 before each call, outside the events
@@ -4237,10 +4410,13 @@ def main() -> int:
     ms_hop = cuda_ms_after(restore_carry, hop_call)
     # device time alone: restore-and-call replayed from a CUDA graph, less
     # the restore (CUDA events around a launched call also hold the host's
-    # launch work while the device waits on it)
+    # launch work while the device waits on it); then once under the warp
+    # match, which WARP_MATCH_MIN_LEAVES does not pick at this L
     restore_carry_ms = graph_ms(restore_carry, 20)
-    graph_hop = graph_ms(lambda: (restore_carry(), hop_call()),
-                         20) - restore_carry_ms
+    hop_graph = lambda: graph_ms(lambda: (restore_carry(), hop_call()),
+                                 20) - restore_carry_ms
+    graph_hop = hop_graph()
+    graph_hop_warp = under_match("warp", hop_graph)
     graph_a = graph_ms(lambda: fw.feature_window_kernel(*a_args), 20)
     # a yardstick, no port of anything: one PyTorch reduction that reads
     # the same strided hop view once (what the view's layout lets a read
@@ -4295,11 +4471,15 @@ def main() -> int:
          engine_hop_ms=ms_hop, engine_hop_plain_ms=plain_hop,
          engine_hop_bound_ms=bound_hop, engine_hop_bound_by=by_hop,
          engine_hop_graph_ms=graph_hop, feature_window_graph_ms=graph_a,
+         engine_hop_match=("warp" if L >= eh.WARP_MATCH_MIN_LEAVES
+                           else "serial"),
+         engine_hop_warp_match_graph_ms=graph_hop_warp,
          engine_hop_bytes=hop_bytes, engine_hop_ops=hop_ops,
          hop_view_read_ms=view_read_ms,
          feature_window_ms=ms_a, feature_window_plain_ms=plain_a,
          feature_window_bound_ms=bound_a,
-         feature_window_k41_ms=ms_a41, feature_window_k41_plain_ms=plain_a41,
+         feature_window_k41_ms=ms_a41, feature_window_k41_graph_ms=graph_a41,
+         feature_window_k41_plain_ms=plain_a41,
          feature_window_k41_bound_ms=bound_a41,
          dt_traverse_ms=ms_b, dt_traverse_plain_ms=plain_b,
          dt_traverse_bound_ms=bound_b, dispatch_dt_traverse_ms=ms_dispatch,
@@ -4823,8 +5003,18 @@ def main() -> int:
                       "bound_windows_read_once_ms":
                           t["bound_windows_read_once_ms"],
                       "graph_over_bound":
-                          t["hop_launches_graph_ms"] / t["bound_ms"]}
-                for tag, t in fit_out["fleet"]["times"].items()}}},
+                          t["hop_launches_graph_ms"] / t["bound_ms"],
+                      "models": t["models"]}
+                for tag, t in fit_out["fleet"]["times"].items()}},
+         "deep_engine_run": {
+             "launches_path": "fit: Engine.run of the (10, 10, 10) / k = 6 "
+                              "model, one per partition",
+             **{key: fit_out["deep_engine_run"][key] for key in (
+                 "launches", "match", "checked", "test_split",
+                 "tiled_2^20")},
+             "shape": "S={S},k={k},T={T},L={L}".format(
+                 **fit_out["deep_engine_run"])},
+         "main_warp_match_graph_ms": graph_hop_warp},
         {"name": "feature_window", "route": "cuda",
          "source": "src/repro_torch/csrc/feature_window.cu",
          "replaces": "src/repro/kernels/feature_window.py:115",
@@ -4839,15 +5029,15 @@ def main() -> int:
              prof: c["run_looped_launches"]
              for prof, c in compact_out.items() if prof != "phase_s"},
          "training_shape": {
-             "shape": f"{len(a41_calls)} launches of window_features, "
-                      f"{tr.n_flows} flows x 3 windows in batches of "
-                      f"{fw_batch}, W={xtr.shape[2]}, k=41",
-             "ms": ms_a41, "plain_ms": plain_a41, "bound_ms": bound_a41,
+             "shape": f"1 launch of window_features, {tr.n_flows} flows x "
+                      f"3 windows, W={xtr.shape[2]}, k=41, one shared row",
+             "launches": fw_setup, "ms": ms_a41, "graph_ms": graph_a41,
+             "plain_ms": plain_a41, "bound_ms": bound_a41,
              "bound_by": by_a41},
          "fit": dict(fit_out["kernel_a"],
                      launches_path="fit: window_features of the 2^17 "
-                                   "training split, 3 windows, all its "
-                                   "launches timed together")},
+                                   "training split, 3 windows, its one "
+                                   "launch")},
         {"name": "dt_traverse", "route": "cuda",
          "source": "src/repro_torch/csrc/dt_traverse.cu",
          "replaces": "src/repro/kernels/dt_traverse.py:58",

@@ -132,7 +132,9 @@ __device__ __forceinline__ void cp_async_wait() {
 // rows[b0], rows[b0 + 1], ... (the hop kernel's survivor mode, where rows
 // is the survivor-first permutation of kernels/compaction.py).  A row
 // outside [0, n_rows) names no flow: its position stays empty, so nothing
-// is read or written out of bounds.
+// is read or written out of bounds.  With `skip` (the hop kernel's done
+// flags, when no trace is asked for) a flow whose flag is set is not
+// walked: its window is neither staged nor read.
 struct WindowTile {
   const float* pkts;     // (B, W, 6) f32, the (W, 6) block of a flow dense
   long long flow_stride; // floats between two flows' windows (even)
@@ -141,12 +143,19 @@ struct WindowTile {
   int W, chunk, stride;  // packets a window, a chunk; floats a staged flow
   const int* rows;       // position -> flow, or null for the identity
   long long n_rows;      // with rows: the flows B it may name
+  const unsigned char* skip;  // (B,) flags of flows not walked, or null
 
   // the flow at position b0 + f (f < n_flows), or -1 for an empty one
-  __device__ __forceinline__ long long flow(int f) const {
+  __device__ __forceinline__ long long at(int f) const {
     if (rows == nullptr) return b0 + f;
     const long long r = rows[b0 + f];
     return r >= 0 && r < n_rows ? r : -1;
+  }
+
+  // the flow walked at position b0 + f, or -1 where none is
+  __device__ __forceinline__ long long flow(int f) const {
+    const long long r = at(f);
+    return r >= 0 && skip != nullptr && skip[r] ? -1 : r;
   }
 };
 

@@ -17,6 +17,11 @@ Window semantics mirror the data plane exactly:
     feature kernel on the card, its plain version on the CPU.  So
     training-time thresholds and inference-time registers agree bit for
     bit, which is why kernel A must equal the plain version exactly.
+
+On the card one kernel launch covers every window of the call, under one
+slot row that all flows share; on the CPU the plain version runs on
+batches of ``_FLOW_BATCH`` flows, which bounds its memory (as the JAX
+package's batch does).
 """
 from __future__ import annotations
 
@@ -46,7 +51,8 @@ def window_bounds(length: int, p: int) -> list[tuple[int, int]]:
 
 def _all_feature_rows(n: int, device: torch.device
                       ) -> tuple[torch.Tensor, ...]:
-    """Slot rows covering ALL registry features (k = N_FEATURES)."""
+    """Slot rows covering ALL registry features (k = N_FEATURES), (n, k)
+    each; kernel A takes n = 1 as one row every flow shares."""
     init = np.asarray([s.init_value for s in REGISTRY], np.float32)
     rows = (FEATURE_TABLE[:, 0], FEATURE_TABLE[:, 1], FEATURE_TABLE[:, 2],
             init)
@@ -67,6 +73,11 @@ def window_features(ds: FlowDataset, p: int, *,
     dev = resolve_device(device)
     wp = torch.from_numpy(window_packets(ds, p)).to(dev)   # (n, p, W, F)
     n = ds.n_flows
+    if dev.type == "cuda":
+        # every window at once: (n, p, W, F) is contiguous, so n * p flows
+        out = feature_window_rows(wp.view(n * p, *wp.shape[2:]),
+                                  *_all_feature_rows(1, dev))
+        return out.view(n, p, N_FEATURES).cpu().numpy()
     out = torch.zeros((n, p, N_FEATURES), dtype=torch.float32, device=dev)
     for lo in range(0, n, _FLOW_BATCH):
         hi = min(lo + _FLOW_BATCH, n)

@@ -17,7 +17,11 @@ No SID dispatch: no argsort, no ``index_add_``, no capacity blocks.
 
 What bounds it on the H100: device memory, ~0.5 ms a hop at B = 2^20,
 W = 65, k = 4 (1.64 GB of windows, ~34 MB of carry, 17 MB of
-registers).  Geometry: ``kernels.window.window_geometry``.
+registers).  Geometry: ``kernels.window.window_geometry``.  The match
+runs one thread a flow on shallow subtrees and a warp a flow on deep
+ones (the design-space search's models, L up to 704 leaves), chosen from
+the tables' L at :data:`WARP_MATCH_MIN_LEAVES`.  Without ``regs_out`` a
+flow done before the hop is not walked at all.
 
 Survivor mode (early-exit compaction): given ``rows``, the permutation
 of ``kernels.compaction.compact_perm``, and ``n_active``, the device
@@ -51,6 +55,18 @@ survivor_launches = 0
 
 _SOURCE = "engine_hop.cu"
 
+#: the least leaves a subtree table (its L, a multiple of 8) may have for
+#: the hop to match a flow with a warp's 32 lanes (``warp_first_hit_leaf``)
+#: instead of one thread (``first_hit_leaf``).  Measured with
+#: ``tools/dse_kernels_ab.py`` on an NVIDIA H100 80GB HBM3 at 700.00 W:
+#: the walk of (d, d, d) models over 2^20 flows, with the trace / without,
+#: serial against warp in ms: at L = 8, k = 4 2.38 / 2.33 against 2.56 /
+#: 2.55, k = 6 2.95 / 2.95 against 3.03 / 3.07; at L = 16, k = 4 2.58 /
+#: 2.46 against 2.58 / 2.52, k = 6 3.36 / 3.29 against 3.06 / 3.08; at
+#: L = 32 and 64 the warp match takes 9-38% less.  So 16: the serial match only
+#: on the 8-leaf tables of ``Engine.run``'s model.
+WARP_MATCH_MIN_LEAVES = 16
+
 
 def _lib():
     from repro_torch.kernels import _build
@@ -58,7 +74,7 @@ def _lib():
     if lib.engine_hop_launch.argtypes is None:
         p, n, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
         lib.engine_hop_launch.argtypes = (
-            [p, n, n] + [i] * 8 + [p] * 9 + [i] * 4 + [p] * 9 + [p])
+            [p, n, n] + [i] * 9 + [p] * 9 + [i] * 4 + [p] * 9 + [p])
         lib.engine_hop_launch.restype = ctypes.c_int
         lib.engine_hop_error_string.argtypes = [ctypes.c_int]
         lib.engine_hop_error_string.restype = ctypes.c_char_p
@@ -95,7 +111,9 @@ def engine_hop_kernel(pkts: torch.Tensor, carry, dev, p: int, *,
     ``rows`` (int32 (B,)) and ``n_active`` (int32, one element), both on
     the device, the hop runs in survivor mode on flows ``rows[:n_active]``
     only and leaves every other flow's carry and ``regs_out`` row as they
-    are; ``caps`` is not read.  ``rows`` and ``n_active`` are
+    are; ``caps`` is not read.  Without ``regs_out`` the flows done
+    before the hop are not walked (their carry is left as it is).
+    ``rows`` and ``n_active`` are
     ``compaction.compact_perm`` of the carry's ``done``, so the flows named
     are the survivors; a count above B reads as B and a row outside
     ``[0, B)`` names no flow.  ``survivors_out`` (int32, one element, on
@@ -147,7 +165,8 @@ def engine_hop_kernel(pkts: torch.Tensor, carry, dev, p: int, *,
     ptr = lambda *ts: [t.data_ptr() for t in ts]
     err = lib.engine_hop_launch(
         pkts.data_ptr(), pkts.stride(0), B, W, k, g.flows, g.chunk,
-        g.stride, g.smem_bytes, g.carveout, p, *ptr(*dev), S, T, L,
+        g.stride, g.smem_bytes, g.carveout, p,
+        int(L >= WARP_MATCH_MIN_LEAVES), *ptr(*dev), S, T, L,
         n_subtrees,
         *ptr(sid, done, labels, recircs, exit_p),
         None if regs_out is None else regs_out.data_ptr(),

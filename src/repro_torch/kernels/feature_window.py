@@ -20,7 +20,8 @@ read in place through its flow stride, so a per-hop view
 another 1.6 GB).  The window sums are the strict left-to-right
 ``ordered_wsum`` chains, spelled with round-to-nearest intrinsics and
 built with ``-fmad=false`` (docs/PARITY.md §1).  Since the engine's walk
-runs the hop kernel, kernel A runs in ``window_features`` (k = 41).
+runs the hop kernel, kernel A runs in ``window_features`` (k = 41): one
+launch a call over every window, under one slot row all flows share.
 
 The fold kernels (``csrc/feature_update.cu``) replace
 ``feature_update_pallas`` and ``feature_update_finalize_pallas``; their
@@ -64,7 +65,7 @@ def _lib():
         p = ctypes.c_void_p
         n, i = ctypes.c_longlong, ctypes.c_int
         lib.feature_window_launch.argtypes = [
-            p, n, p, p, p, p, p, n, i, i, i, i, i, i, i, p]
+            p, n, p, p, p, p, n, p, n, i, i, i, i, i, i, i, p]
         lib.feature_window_launch.restype = ctypes.c_int
         lib.feature_window_error_string.argtypes = [ctypes.c_int]
         lib.feature_window_error_string.restype = ctypes.c_char_p
@@ -86,12 +87,36 @@ def _check_slot_rows(name: str, x: torch.Tensor, dtype: torch.dtype,
             f"{device}, got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
+_SLOT_ROW_DTYPES = (("slot_op", torch.int32), ("slot_field", torch.int32),
+                    ("slot_pred", torch.int32), ("slot_init", torch.float32))
+
+
+def slot_row_stride(B: int, rows: tuple[torch.Tensor, ...],
+                    device: torch.device) -> tuple[int, int]:
+    """Kernel A's four slot-row arguments ``(slot_op, slot_field,
+    slot_pred, slot_init)`` for ``B`` flows: each (B, k), a row a flow, or
+    each (1, k), one row every flow shares, contiguous on ``device`` with
+    the dtypes the kernel reads.  Returns ``(k, row_stride)``: the stride
+    in elements between two flows' rows, k or 0.  Raises ``ValueError``
+    on anything else."""
+    lead = rows[0].shape[0] if rows[0].dim() == 2 else -1
+    if lead not in (1, B):
+        raise ValueError(f"slot rows: need (B={B}, k) or (1, k) tensors, "
+                         f"got {tuple(rows[0].shape)}")
+    k = rows[0].shape[1]
+    for (name, dt), x in zip(_SLOT_ROW_DTYPES, rows, strict=True):
+        _check_slot_rows(name, x, dt, lead, device)
+        if x.shape[1] != k:
+            raise ValueError(f"{name}: need k={k} slots, got {x.shape[1]}")
+    return k, (0 if lead == 1 else k)
+
+
 def feature_window_kernel(
     pkts: torch.Tensor,        # (B, W, PKT_NFIELDS) f32, any flow stride
-    slot_op: torch.Tensor,     # (B, k) int32 (pre-gathered by SID)
-    slot_field: torch.Tensor,  # (B, k) int32
-    slot_pred: torch.Tensor,   # (B, k) int32
-    slot_init: torch.Tensor,   # (B, k) f32
+    slot_op: torch.Tensor,     # (B, k) or (1, k) int32
+    slot_field: torch.Tensor,  # the same, int32
+    slot_pred: torch.Tensor,   # the same, int32
+    slot_init: torch.Tensor,   # the same, f32
 ) -> torch.Tensor:
     """Launch kernel A on the current stream; returns regs (B, k) f32.
 
@@ -99,19 +124,15 @@ def feature_window_kernel(
     and be 8-byte aligned with an even flow stride
     (``kernels.window.check_window_view``); its flow stride is passed to
     the kernel, so a view such as ``win_pkts[:, p]`` is read in place.
-    Takes k up to ``kernels.window.WINDOW_THREADS`` slots.
+    The slot rows are (B, k), a row a flow (pre-gathered by SID), or
+    (1, k), one row every flow shares (:func:`slot_row_stride`).  Takes k
+    up to ``kernels.window.WINDOW_THREADS`` slots.
     """
     global launches
     check_window_view(pkts, "feature_window_kernel")
+    rows = (slot_op, slot_field, slot_pred, slot_init)
+    k, row_stride = slot_row_stride(pkts.shape[0], rows, pkts.device)
     B, W, _ = pkts.shape
-    k = slot_op.shape[1] if slot_op.dim() == 2 else -1
-    for name, x, dt in (("slot_op", slot_op, torch.int32),
-                        ("slot_field", slot_field, torch.int32),
-                        ("slot_pred", slot_pred, torch.int32),
-                        ("slot_init", slot_init, torch.float32)):
-        _check_slot_rows(name, x, dt, B, pkts.device)
-        if x.shape[1] != k:
-            raise ValueError(f"{name}: need k={k} slots, got {x.shape[1]}")
     out = torch.empty((B, k), dtype=torch.float32, device=pkts.device)
     if B == 0 or k == 0:
         return out
@@ -119,10 +140,9 @@ def feature_window_kernel(
     lib = _lib()
     stream = torch.cuda.current_stream(pkts.device).cuda_stream
     err = lib.feature_window_launch(
-        pkts.data_ptr(), pkts.stride(0), slot_op.data_ptr(),
-        slot_field.data_ptr(), slot_pred.data_ptr(), slot_init.data_ptr(),
-        out.data_ptr(), B, W, k, g.flows, g.chunk, g.stride, g.smem_bytes,
-        g.carveout, stream)
+        pkts.data_ptr(), pkts.stride(0), *(x.data_ptr() for x in rows),
+        row_stride, out.data_ptr(), B, W, k, g.flows, g.chunk, g.stride,
+        g.smem_bytes, g.carveout, stream)
     if err != 0:
         msg = lib.feature_window_error_string(err).decode()
         raise RuntimeError(f"feature_window kernel launch failed: {msg}")
