@@ -99,6 +99,23 @@ exits nonzero; nothing is caught and passed over):
    M x ``pdt.predict``, at the test split and tiled to 2^20 flows.  Last, on ``make_dataset("d2",
    1200)``, a seeded ``bayes_search`` with the torch trainer and
    ``evaluate_batch`` gives the serial numpy history;
+4f. system -- the paper's evaluation path (``tests/test_system.py``) at
+   full width: ``make_dataset("d1", 2^17)`` split 70/30 (91,750 / 39,322
+   flows, 19 classes); ``window_features`` at P = 2 and 3 and
+   ``full_flow_features`` of both splits (kernel A, one launch a call;
+   the full-flow launch at W = 192, the longest flow, k = 41 under one
+   shared slot row); ``train_partitioned_dt(trainer="torch")`` at (6, 6)
+   / k = 6, (5, 5, 5) / k = 6, (3, 3, 3) / k = 4 and (5, 5) / k = 4 on
+   32-bit and on ``quantize_features(., 8)`` features;
+   ``Engine.from_model(pdt).run`` of the (3, 3, 3) model (one hop launch
+   a partition) == ``pdt.predict``, and an ``impl="ref"`` engine on the
+   card == that ``cuda`` walk with no hop launch; the NetBeacon-style
+   top-k baseline (k 6, depth 13) on the full-flow features,
+   ``estimate`` and ``recirc_bandwidth`` for WS and HD; kernel A's
+   full-flow registers == its plain version on both splits, timed
+   beside its bound; last ``examples/quickstart_torch.py`` on the card
+   (its labels == its ``pdt.predict``).  The claims' numbers are
+   printed, not gated;
 5. serve   -- live serving, the second path: the dataset of phase
    ``fit`` streamed by ``make_packet_stream(profile="steady",
    concurrency=65536)`` in ticks of 32,768 packets through
@@ -335,6 +352,10 @@ FLEET_BATCH = 4           # bayes_search's default proposal batch
 FLEET_SEED = 0
 FLEET_FLOWS = 100_000     # the evaluator's flow target (tests/test_fit.py)
 DSE_SMALL = 1200          # make_dataset("d2", 1200): tests/test_fit.py's data
+SYSTEM_FLOWS = 1 << 17    # phase system: make_dataset("d1", SYSTEM_FLOWS)
+SYSTEM_MODELS = {         # tests/test_system.py's models: sizes, k
+    "splidt": ((6, 6), 6), "scaling": ((5, 5, 5), 6),
+    "engine": ((3, 3, 3), 4), "f32": ((5, 5), 4), "f8": ((5, 5), 4)}
 # micro-batches of phase stream (4096 is the JAX package's default, 65536
 # the card's, core.inference.MICRO_BATCH) and the probe sizes of phase
 # tune's calibrate
@@ -4091,6 +4112,217 @@ def fit_phase(card, ds) -> dict:
     return out
 
 
+def system_phase(card) -> dict:
+    """Phase ``system``: ``tests/test_system.py``'s path on the card at
+    full width, ``make_dataset("d1", SYSTEM_FLOWS)`` split 70/30.
+
+    Features: ``window_features`` at P = 2 and 3 (kernel A, one launch a
+    call) and ``full_flow_features`` of both splits (one kernel-A launch
+    each, W = the longest flow, k = 41 under one shared slot row).  Models
+    (``trainer="torch"`` on the card): ``SYSTEM_MODELS``, the 8-bit one
+    on ``quantize_features(., 8)``.  ``Engine.from_model(pdt).run`` of
+    the (3, 3, 3) / k = 4 model on the test windows (one hop launch a
+    partition), ``best_oneshot_for_flows(style="nb", k_grid=(6,),
+    depth_grid=(13,), flows=100_000)`` on the full-flow features,
+    ``estimate`` and ``recirc_bandwidth`` for both environments.  Last,
+    ``examples/quickstart_torch.main([])`` on the card.  The counts are
+    zeroed before the path and read after it.
+
+    Gates (``torch.equal`` / ``np.array_equal``): kernel A's full-flow
+    registers == its plain version on the whole of both splits (and ==
+    what ``full_flow_features`` returned); the engine's verdicts ==
+    ``pdt.predict``; an ``impl="ref"`` engine on the card == the
+    ``cuda`` walk, trace included, with no hop launch; the quickstart's
+    labels == its ``pdt.predict``, with its launches.  The paper's claims
+    are printed, not gated (the CPU tests gate them at
+    ``tests/test_system.py``'s sizes).  Kernel A's full-flow launch is
+    timed (events, graph replay) beside its plain version and its
+    bound."""
+    import torch
+
+    from repro_torch.core.baselines import best_oneshot_for_flows
+    from repro_torch.core.inference import Engine
+    from repro_torch.core.partition import train_partitioned_dt
+    from repro_torch.core.recirc import HADOOP, WEBSERVER, recirc_bandwidth
+    from repro_torch.core.resources import estimate
+    from repro_torch.core.tree import macro_f1
+    from repro_torch.flows.synthetic import make_dataset
+    from repro_torch.flows.windows import (
+        _all_feature_rows, full_flow_features, quantize_features,
+        window_features, window_packets,
+    )
+    from repro_torch.kernels import dt_traverse, ref
+    from repro_torch.kernels import engine_hop as eh
+    from repro_torch.kernels import feature_window as fw
+
+    def zero_counts():
+        fw.launches = dt_traverse.launches = eh.launches = 0
+
+    def counts():
+        return {"feature_window": fw.launches,
+                "dt_traverse": dt_traverse.launches,
+                "engine_hop": eh.launches}
+
+    t_phase = time.perf_counter()
+    steps = {}
+
+    def step(name, t0):
+        steps[name] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    ds = make_dataset("d1", SYSTEM_FLOWS)
+    tr, te = ds.split()
+    C = ds.n_classes
+    step("dataset", t0)
+    out = {"flows": SYSTEM_FLOWS, "n_train": tr.n_flows,
+           "n_test": te.n_flows, "n_classes": C, "steps_s": steps}
+
+    # -- the path, counted from zero ---------------------------------------
+    t0 = time.perf_counter()
+    zero_counts()
+    Xw2_tr, Xw2_te = window_features(tr, 2), window_features(te, 2)
+    Xw3_tr, Xw3_te = window_features(tr, 3), window_features(te, 3)
+    Xf_tr, Xf_te = full_flow_features(tr), full_flow_features(te)
+    feat_launches = counts()
+    check(feat_launches == {"feature_window": 6, "dt_traverse": 0,
+                            "engine_hop": 0},
+          f"system features: one kernel-A launch a call, got "
+          f"{feat_launches}")
+    step("features", t0)
+
+    t0 = time.perf_counter()
+    models, fit_s = {}, {}
+    inputs = {"splidt": Xw2_tr, "scaling": Xw3_tr, "engine": Xw3_tr,
+              "f32": Xw2_tr, "f8": quantize_features(Xw2_tr, 8)}
+    for name, (sizes, kk) in SYSTEM_MODELS.items():
+        t1 = time.perf_counter()
+        models[name] = train_partitioned_dt(
+            inputs[name], tr.labels, partition_sizes=list(sizes), k=kk, n_classes=C,
+            trainer="torch", device=card)
+        fit_s[name] = time.perf_counter() - t1
+    step("train", t0)
+
+    t0 = time.perf_counter()
+    pdt = models["engine"]
+    wp_te = window_packets(te, 3)
+    eng = Engine.from_model(pdt)
+    before = counts()
+    res = eng.run(wp_te)
+    run_launches = {k: counts()[k] - before[k] for k in before}
+    check(run_launches == {"feature_window": 0, "dt_traverse": 0,
+                           "engine_hop": 3},
+          f"system Engine.run: one hop launch a partition, got "
+          f"{run_launches}")
+    path_launches = counts()
+    want = pdt.predict(Xw3_te, return_trace=True)
+    for name, w in zip(("labels", "recircs", "exit_partition"), want):
+        check(np.array_equal(getattr(res, name), w),
+              f"system Engine.run {name} == pdt.predict")
+    zero_counts()
+    res_ref = Engine.from_model(pdt, impl="ref").run(wp_te)
+    check(counts()["engine_hop"] == 0,
+          "an impl='ref' engine walks the plain hop")
+    for name in ("labels", "recircs", "exit_partition"):
+        check(np.array_equal(getattr(res_ref, name), getattr(res, name)),
+              f"impl='ref' engine == the cuda walk: {name}")
+    for p, (a, b) in enumerate(zip(res_ref.regs_trace, res.regs_trace)):
+        check(np.array_equal(a.view(np.int32), b.view(np.int32)),
+              f"impl='ref' engine == the cuda walk: regs hop {p}")
+    step("engine", t0)
+
+    # -- the claims (printed) ------------------------------------------------
+    t0 = time.perf_counter()
+    f1_splidt = macro_f1(te.labels, models["splidt"].predict(Xw2_te), C)
+    _, f1_topk = best_oneshot_for_flows(
+        Xf_tr, tr.labels, Xf_te, te.labels, flows=100_000, style="nb",
+        n_classes=C, k_grid=(6,), depth_grid=(13,))
+    step("baseline", t0)
+    t0 = time.perf_counter()
+    scaling = models["scaling"]
+    f32 = macro_f1(te.labels, models["f32"].predict(Xw2_te), C)
+    f8 = macro_f1(te.labels, models["f8"].predict(
+        quantize_features(Xw2_te, 8)), C)
+    c32 = estimate(models["f32"], bits=32).flow_capacity
+    c8 = estimate(models["f8"], bits=8).flow_capacity
+    rep = estimate(pdt, flows=100_000)
+    recirc = {env.name: recirc_bandwidth(res.recircs, 1_000_000,
+                                         env).fraction_of_budget
+              for env in (WEBSERVER, HADOOP)}
+    out["claims"] = {
+        "splidt_f1": f1_splidt, "topk_f1": f1_topk,
+        "splidt_beats_topk": f1_splidt > f1_topk,
+        "unique_features": len(scaling.unique_features()), "k": 6,
+        "unique_over_k": len(scaling.unique_features()) / 6,
+        "max_features_per_subtree": scaling.max_features_per_subtree(),
+        "engine_f1": macro_f1(te.labels, res.labels, C),
+        "recirc_fraction": recirc,
+        "recirc_under_0.05%": all(v < 5e-4 for v in recirc.values()),
+        "feasible_at_100k": rep.feasible,
+        "f8": f8, "f32": f32, "f8_over_f32": f8 / f32,
+        "c8": c8, "c32": c32, "c8_over_c32": c8 / c32,
+        "feature_density": models["splidt"].feature_density(),
+        "total_depth": {n: m.total_depth for n, m in models.items()}}
+    out["fit_s"] = fit_s
+    step("reports", t0)
+
+    # -- kernel A at the full-flow shape: gate and times ----------------------
+    t0 = time.perf_counter()
+    kernel_a = {}
+    for split, d, Xf in (("train", tr, Xf_tr), ("test", te, Xf_te)):
+        x = torch.from_numpy(window_packets(d, 1)).to(card)
+        args = window_feature_call(x, _all_feature_rows)
+        got = fw.feature_window_kernel(*args)
+        check(torch.equal(got, in_slices(ref.feature_window_ref, args)),
+              f"kernel A full flow == plain on the {split} split "
+              f"(B={x.shape[0]}, W={x.shape[2]}, k=41, one shared row)")
+        check(np.array_equal(got.cpu().numpy().view(np.int32),
+                             Xf.view(np.int32)),
+              f"full_flow_features({split}) == kernel A's registers")
+        bound, by = feature_window_bound(x.shape[0], x.shape[2], 41,
+                                         shared_rows=True)
+        kernel_a[split] = {
+            "shape": f"1 launch of B={x.shape[0]}, W={x.shape[2]}, k=41, "
+                     "one shared row",
+            "ms": cuda_ms(lambda: fw.feature_window_kernel(*args), reps=5),
+            "graph_ms": graph_ms(lambda: fw.feature_window_kernel(*args), 1,
+                                 reps=3),
+            "plain_ms": cuda_ms(lambda: in_slices(ref.feature_window_ref,
+                                                  args), reps=2, warmup=1),
+            "plain_ms_in": "slices of 32,768 windows",
+            "bound_ms": bound, "bound_by": by, "equal": True,
+            "mean_packets": float(d.lengths.mean())}
+        del x, args, got
+    torch.cuda.empty_cache()
+    out["kernel_a_full_flow"] = kernel_a
+    step("kernel_a", t0)
+
+    # -- the quickstart example on the card ----------------------------------
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "examples"))
+    import quickstart_torch
+    zero_counts()
+    q = quickstart_torch.main([])
+    q_launches = counts()
+    check(q["device"].startswith("cuda"), "the quickstart ran on the card")
+    check(q_launches == {"feature_window": 1, "dt_traverse": 0,
+                         "engine_hop": 3},
+          f"quickstart: one kernel-A launch and one hop launch a "
+          f"partition, got {q_launches}")
+    q_want = q["pdt"].predict(window_features(q["test"], 3),
+                              return_trace=True)
+    for name, w in zip(("labels", "recircs", "exit_partition"), q_want):
+        check(np.array_equal(q[name], w),
+              f"quickstart engine {name} == its pdt.predict")
+    out["quickstart"] = {k: q[k] for k in (
+        "f1", "mean_recircs", "unique_features", "total_depth",
+        "tcam_entries", "recirc_fraction")}
+    out["quickstart"]["launches"] = q_launches
+    step("quickstart", t0)
+    out["launches"] = path_launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4520,6 +4752,10 @@ def main() -> int:
     ds_s = make_dataset("d2", SERVE_FLOWS, seed=1)      # serve streams it
     fit_out = fit_phase(card, ds_s)
     emit("fit", card=smi, **fit_out)
+
+    # -- 4e. the paper's evaluation path (tests/test_system.py) --------------
+    system_out = system_phase(card)
+    emit("system", card=smi, **system_out)
 
     # -- 5. live serving through the flow table ------------------------------
     t0 = time.perf_counter()
@@ -5014,7 +5250,14 @@ def main() -> int:
                  "tiled_2^20")},
              "shape": "S={S},k={k},T={T},L={L}".format(
                  **fit_out["deep_engine_run"])},
-         "main_warp_match_graph_ms": graph_hop_warp},
+         "main_warp_match_graph_ms": graph_hop_warp,
+         "system": {
+             "launches_path": "system: Engine.run of the (3, 3, 3) / k = 4 "
+                              "d1 model on the test windows, one per "
+                              "partition; quickstart_torch, the same",
+             "launches": system_out["launches"]["engine_hop"],
+             "quickstart_launches":
+                 system_out["quickstart"]["launches"]["engine_hop"]}},
         {"name": "feature_window", "route": "cuda",
          "source": "src/repro_torch/csrc/feature_window.cu",
          "replaces": "src/repro/kernels/feature_window.py:115",
@@ -5037,7 +5280,16 @@ def main() -> int:
          "fit": dict(fit_out["kernel_a"],
                      launches_path="fit: window_features of the 2^17 "
                                    "training split, 3 windows, its one "
-                                   "launch")},
+                                   "launch"),
+         "system_full_flow": {
+             "launches_path": "system: full_flow_features of the d1 train "
+                              "and test splits, one launch each (of the "
+                              "path's 6 with window_features at P = 2 and "
+                              "3)",
+             "launches": system_out["launches"]["feature_window"],
+             "quickstart_launches":
+                 system_out["quickstart"]["launches"]["feature_window"],
+             **system_out["kernel_a_full_flow"]}},
         {"name": "dt_traverse", "route": "cuda",
          "source": "src/repro_torch/csrc/dt_traverse.cu",
          "replaces": "src/repro/kernels/dt_traverse.py:58",

@@ -157,6 +157,8 @@ def _mk_registry() -> list[FeatureSpec]:
 
 REGISTRY: list[FeatureSpec] = _mk_registry()
 N_FEATURES = len(REGISTRY)          # 41, matching D1's N in the paper
+FEATURE_NAMES = [s.name for s in REGISTRY]
+NAME_TO_FID = {s.name: s.fid for s in REGISTRY}
 
 # packed (N_FEATURES, 4) table: op, field, pred, dep_depth
 FEATURE_TABLE = np.asarray(
@@ -228,3 +230,9 @@ def _last_true_index(mask: np.ndarray) -> np.ndarray:
     any_ = mask.any(axis=-1)
     idx = mask.shape[-1] - 1 - rev.argmax(axis=-1)
     return np.where(any_, idx, -1)
+
+
+def compute_all_features(pkts: np.ndarray) -> np.ndarray:
+    """All N features over a window: (..., W, F) -> (..., N_FEATURES)."""
+    cols = [compute_feature(pkts, s) for s in REGISTRY]
+    return np.stack(cols, axis=-1)

@@ -62,6 +62,7 @@ per-packet serving is ``repro_torch.serve.flowtable``.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 import weakref
 from typing import Callable
 
@@ -76,6 +77,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import compaction, ops
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.engine_hop import engine_hop_kernel, engine_hop_plain
+from repro_torch.kernels.ops import StepFn  # noqa: F401  (the JAX name)
 
 
 @dataclasses.dataclass
@@ -100,7 +102,7 @@ class EngineResult:
 # contract of the walk backends; rows / n_active / caps compact the hop
 HopFn = Callable[..., None]
 
-_IMPLS = (None, "auto", "tuned", "fused", "cuda", "looped")
+_IMPLS = (None, "auto", "tuned", "ref", "fused", "cuda", "looped")
 
 #: Streaming chunk size a device type reads when ``EngineOptions
 #: .micro_batch`` is None: 65,536 flows on a card (``chip_smoke.py`` phase
@@ -121,8 +123,10 @@ class EngineOptions:
     ===============  =====================================================
     knob             meaning
     ===============  =====================================================
-    impl             ``None`` (``cuda`` on a CUDA engine, ``fused`` on a
-                     CPU one), a backend (``fused``: plain PyTorch;
+    impl             ``None`` (the engine's own ``impl``; if that is
+                     ``None`` too, ``cuda`` on a CUDA engine and
+                     ``fused`` on a CPU one), a backend (``fused``, or
+                     its alias ``ref``: plain PyTorch;
                      ``cuda``: the hop kernel, CUDA engines only;
                      ``looped``: the host loop), ``"auto"`` (cost model)
                      or ``"tuned"`` (autotune cache); see
@@ -180,6 +184,34 @@ class EngineOptions:
     def replace(self, **changes) -> "EngineOptions":
         """``dataclasses.replace`` as a method."""
         return dataclasses.replace(self, **changes)
+
+
+#: Sentinel telling "legacy keyword not passed" from any real value
+#: (None is meaningful for several knobs).
+_UNSET = object()
+
+
+def _legacy_options(options: EngineOptions | None, legacy: dict,
+                    *, stacklevel: int = 3) -> EngineOptions:
+    """Fold explicitly passed legacy keywords into an EngineOptions.
+
+    The deprecation shim of ``Engine.run`` / ``run_looped`` /
+    ``run_streaming``, as the JAX package's: the keywords still work but
+    warn (``DeprecationWarning``), and mixing them with ``options=`` is
+    an error rather than a silent precedence rule.
+    """
+    passed = {key: v for key, v in legacy.items() if v is not _UNSET}
+    if not passed:
+        return options if options is not None else EngineOptions()
+    if options is not None:
+        raise ValueError(
+            "pass options=EngineOptions(...) OR legacy keyword(s) "
+            f"({', '.join(sorted(passed))}), not both")
+    warnings.warn(
+        "keyword(s) " + ", ".join(sorted(passed)) + " are deprecated; "
+        "use options=EngineOptions(...) instead",
+        DeprecationWarning, stacklevel=stacklevel)
+    return EngineOptions(**passed)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -282,6 +314,14 @@ def partition_walk(
             # a compacted hop visits the survivors alone
             left[p + 1].sub_(torch.sum(carry[1], dtype=torch.int32))
     return buf
+
+
+# the JAX package's names of the same walk: ``fused_partition_walk`` is
+# the walk over the plain hop, and PyTorch has no buffer donation, so the
+# ``_donated`` forms are the walk itself
+fused_partition_walk = partition_walk
+partition_walk_donated = partition_walk
+fused_partition_walk_donated = partition_walk
 
 
 def fetch_async(buf: torch.Tensor):
@@ -497,20 +537,26 @@ def get_backend(impl: str = "auto", shape=None, *,
     tuned       resolved by ``Engine.run`` / ``run_streaming`` through
                 the autotune cache; refused here (it needs an engine
                 and a batch to probe)
-    fused       the plain PyTorch walk
+    fused, ref  the plain PyTorch walk
     cuda        the hop-kernel walk (a CUDA device only)
     looped      the host loop, one sync a hop
     ==========  =====================================================
 
-    ``device`` defaults to the card when one is visible, else the CPU.
+    ``device=None`` means the card, and raises where there is none
+    (``repro_torch.device.resolve_device``); a device named explicitly
+    only picks the row of the matrix.
     """
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    on_card = torch.device(device).type == "cuda"
     if impl == "tuned":
         raise ValueError(
             "impl='tuned' is shape-dependent; use Engine.run / "
             "run_streaming (they resolve it through repro_torch.tuning)")
+    if impl not in _IMPLS or impl is None:
+        raise ValueError(f"unknown impl {impl!r}; options: auto, tuned, "
+                         "ref, " + ", ".join(sorted(_BACKENDS)))
+    device = resolve_device(None) if device is None else torch.device(device)
+    on_card = device.type == "cuda"
+    if impl == "ref":
+        impl = "fused"
     if impl == "auto":
         if shape is not None:
             from repro_torch.tuning import choose_plan
@@ -520,36 +566,45 @@ def get_backend(impl: str = "auto", shape=None, *,
     if impl == "cuda" and not on_card:
         raise ValueError("impl='cuda' needs an engine on a CUDA device; "
                          f"this one is on {device}")
-    try:
-        return _BACKENDS[impl]
-    except KeyError:
-        raise ValueError(f"unknown impl {impl!r}; options: auto, tuned, "
-                         + ", ".join(sorted(_BACKENDS))) from None
+    return _BACKENDS[impl]
 
 
 @dataclasses.dataclass
 class Engine:
+    """A trained model's tables on one device.  ``impl`` is the engine's
+    default route, read wherever ``EngineOptions.impl`` is ``None``
+    (``run``, ``run_streaming``, the flow-table server); ``None`` is the
+    device's own (``cuda`` on a card, ``fused`` on the CPU)."""
     tables: EngineTables
     device: torch.device
+    impl: str | None = None
     _replicas: dict = dataclasses.field(default_factory=dict, repr=False,
                                         compare=False)
 
+    def __post_init__(self):
+        if self.impl not in _IMPLS:
+            raise ValueError(f"unknown impl {self.impl!r}; options: "
+                             + ", ".join(str(i) for i in _IMPLS))
+
     @classmethod
-    def from_model(cls, pdt: PartitionedDT,
+    def from_model(cls, pdt: PartitionedDT, impl: str | None = None,
                    device: "str | torch.device | None" = None) -> "Engine":
         """Pack a trained model and upload its tables to ``device``
-        (``None`` = the card)."""
+        (``None`` = the card), with ``impl`` as the engine's default
+        route."""
         dev = resolve_device(device)
         ret = pack_range_exec(pdt)
         return cls(tables=EngineTables(
             dev=ops.device_tables(pack_tables(pdt), ret, dev),
             n_subtrees=ret.n_subtrees, n_partitions=pdt.n_partitions,
-            n_classes=ret.n_classes), device=dev)
+            n_classes=ret.n_classes), device=dev, impl=impl)
 
     @classmethod
-    def from_tables(cls, tables: EngineTables) -> "Engine":
+    def from_tables(cls, tables: EngineTables,
+                    impl: str | None = None) -> "Engine":
         """An engine over already-uploaded tables (see ``convert``)."""
-        return cls(tables=tables, device=tables.dev.slot_op.device)
+        return cls(tables=tables, device=tables.dev.slot_op.device,
+                   impl=impl)
 
     def tables_on(self, device: "str | torch.device") -> ops.DeviceTables:
         """The engine's device tables on ``device``: its own on its own
@@ -572,22 +627,27 @@ class Engine:
         return self.tables.n_partitions
 
     def run(self, win_pkts, *, with_trace: bool = True,
-            options: EngineOptions | None = None) -> EngineResult:
+            options: EngineOptions | None = None,
+            impl: "str | None | object" = _UNSET,
+            compact: "bool | str | object" = _UNSET) -> EngineResult:
         """``win_pkts``: (B, p, W, PKT_NFIELDS) from ``window_packets``,
         as a numpy array or a tensor (moved to the engine's device).
 
         ``options.plan`` (a resolved ``repro_torch.tuning.Plan``) wins
-        outright; otherwise ``options.impl``: a backend name (or ``None``,
-        the device's default) runs that backend, ``"auto"`` routes through
+        outright; otherwise ``options.impl``, falling back to the
+        engine's ``impl``: a backend name (or ``None``, the device's
+        default) runs that backend, ``"auto"`` routes through
         the cost model for this batch's shape and ``"tuned"`` through the
         autotune cache (the first call on a new shape and device times a
         shortlist).  ``compact=True`` compacts between hops, ``"auto"``
         lets the plan decide.  A plan that decided the route lands on
         ``EngineResult.plan``.  Every route is bit-identical, so the
-        choice changes speed, never results.
+        choice changes speed, never results.  The ``impl=`` and
+        ``compact=`` keywords are the JAX package's deprecated shims for
+        ``options=``.
         """
         from repro_torch.tuning import resolve_route
-        opt = options if options is not None else EngineOptions()
+        opt = _legacy_options(options, {"impl": impl, "compact": compact})
         name, compact, floor, plan = resolve_route(self, opt, win_pkts)
         if plan is not None:
             # the backends read compact and compact_floor alone
@@ -598,19 +658,29 @@ class Engine:
         return res
 
     def run_streaming(self, win_pkts, *,
-                      options: EngineOptions | None = None) -> EngineResult:
+                      options: EngineOptions | None = None,
+                      micro_batch=_UNSET, donate=_UNSET, mesh=_UNSET,
+                      impl=_UNSET, inflight=_UNSET,
+                      compact=_UNSET) -> EngineResult:
         """Chunk ``win_pkts`` (numpy, B unbounded) into micro-batches and
         stream them through a walk backend, with ``options.inflight``
         chunks in the pipeline and, with ``options.mesh``, each chunk's
         flows sharded over the mesh's devices.  Equal to ``run(win_pkts,
-        with_trace=False)``.  See ``repro_torch.serve.streaming``."""
+        with_trace=False)``.  Legacy keywords are deprecated shims for
+        ``options=``.  See ``repro_torch.serve.streaming``."""
+        opt = _legacy_options(options, {
+            "micro_batch": micro_batch, "donate": donate, "mesh": mesh,
+            "impl": impl, "inflight": inflight, "compact": compact})
         from repro_torch.serve.streaming import run_streaming
-        return run_streaming(self, win_pkts, options=options)
+        return run_streaming(self, win_pkts, options=opt)
 
     def run_looped(self, win_pkts, *, with_trace: bool = True,
-                   options: EngineOptions | None = None) -> EngineResult:
+                   options: EngineOptions | None = None,
+                   compact=_UNSET) -> EngineResult:
         """The looped backend (``options.impl`` is not read): per-op
         kernels and one host sync per hop; ``options.compact`` compacts
-        each hop after the first to the exact survivor rows."""
+        each hop after the first to the exact survivor rows (``compact=``
+        is the deprecated shim)."""
+        opt = _legacy_options(options, {"compact": compact})
         return LOOPED_BACKEND.run(self, win_pkts, with_trace=with_trace,
-                                  options=options)
+                                  options=opt)

@@ -45,6 +45,10 @@ class SubTree:
     def used_features(self) -> np.ndarray:
         return self.tree.used_features()
 
+    @property
+    def depth(self) -> int:
+        return self.tree.max_depth
+
 
 @dataclasses.dataclass
 class PartitionedDT:
@@ -59,6 +63,10 @@ class PartitionedDT:
     def n_partitions(self) -> int:
         return len(self.partition_sizes)
 
+    @property
+    def total_depth(self) -> int:
+        return int(sum(self.partition_sizes))
+
     def sids_in_partition(self, p: int) -> list[int]:
         return [s.sid for s in self.subtrees if s.partition == p]
 
@@ -68,9 +76,26 @@ class PartitionedDT:
         return np.unique(np.concatenate([s.used_features
                                          for s in self.subtrees]))
 
+    def max_features_per_subtree(self) -> int:
+        return max((len(s.used_features) for s in self.subtrees), default=0)
+
     def dep_depth(self) -> int:
         return max((max_dep_depth(s.used_features) for s in self.subtrees),
                    default=0)
+
+    def feature_density(self) -> tuple[float, float]:
+        """(%features used per partition, %features per subtree) -- Table 1."""
+        per_sub = [100.0 * len(s.used_features) / self.n_features
+                   for s in self.subtrees]
+        per_part = []
+        for p in range(self.n_partitions):
+            feats = [s.used_features for s in self.subtrees
+                     if s.partition == p]
+            if feats:
+                per_part.append(100.0 * len(np.unique(np.concatenate(feats)))
+                                / self.n_features)
+        return (float(np.mean(per_part)) if per_part else 0.0,
+                float(np.mean(per_sub)) if per_sub else 0.0)
 
     # ---- reference inference (numpy oracle) ---------------------------
     def predict(self, X_windows: np.ndarray,

@@ -87,6 +87,12 @@ class Tree:
             active = self.feature[node] >= 0
         return node
 
+    def predict_proba(self, X: np.ndarray) -> np.ndarray:
+        leaves = self.apply(X)
+        v = self.value[leaves]
+        s = v.sum(axis=1, keepdims=True)
+        return v / np.maximum(s, 1e-9)
+
     def predict(self, X: np.ndarray) -> np.ndarray:
         return self.value[self.apply(X)].argmax(axis=1)
 

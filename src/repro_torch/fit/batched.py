@@ -241,7 +241,7 @@ def fleet_predict(pdts: list, win_pkts, *,
     hop = engine_hop_kernel if dev.type == "cuda" else engine_hop_plain
     bufs = []
     for p in pdts:
-        t = Engine.from_model(p, dev).tables
+        t = Engine.from_model(p, device=dev).tables
         bufs.append(partition_walk(x, t.dev, n_subtrees=t.n_subtrees,
                                    n_partitions=t.n_partitions,
                                    with_trace=False, hop=hop))

@@ -110,3 +110,38 @@ def window_packets(ds: FlowDataset, p: int) -> np.ndarray:
             win[:, 0, PKT_IAT] = 0.0
             out[rows, w, :hi - lo] = win
     return out
+
+
+def full_flow_features(ds: FlowDataset, *,
+                       device: "str | torch.device | None" = None
+                       ) -> np.ndarray:
+    """Whole-flow features (the one-shot baselines' best case):
+    ``(n_flows, N_FEATURES)``, one window per flow.  On the card this is
+    one launch of the feature kernel over windows as long as the longest
+    flow."""
+    return window_features(ds, 1, device=device)[:, 0, :]
+
+
+def quantize_features(X: np.ndarray, bits: int) -> np.ndarray:
+    """Reduce feature bit precision (paper Fig. 12).
+
+    Features are stored in ``bits``-wide registers.  Counters and sums
+    are heavy-tailed, so narrow registers hold them LOG-encoded (switch
+    ASICs implement this with a leading-zero/priority encoder, the same
+    primitive range marking uses): q = round(log1p(x - min) * scale).
+    Linear 8-bit quantisation would collapse the low-magnitude range
+    where most of the discrimination lives.
+
+    numpy, op for op as the JAX package's: a torch ``log1p``/``expm1``
+    may differ from numpy's in the last ulp, which moves a threshold
+    trained on the result.
+    """
+    if bits >= 32:
+        return X
+    lo = X.min(axis=tuple(range(X.ndim - 1)), keepdims=True)
+    y = np.log1p(np.maximum(X - lo, 0.0))
+    hi = y.max(axis=tuple(range(X.ndim - 1)), keepdims=True)
+    span = np.maximum(hi, 1e-9)
+    levels = float(2 ** bits - 1)
+    q = np.round(y / span * levels)
+    return (np.expm1(q / levels * span) + lo).astype(np.float32)

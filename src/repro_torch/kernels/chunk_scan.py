@@ -33,6 +33,9 @@ import ctypes
 
 import torch
 
+#: the chunk length ``ops.chunk_scan`` defaults to
+DEFAULT_CHUNK = 128
+
 #: calls that launched the kernel since the last reset (``chip_smoke.py``
 #: zeroes it before driving the LM path)
 launches = 0

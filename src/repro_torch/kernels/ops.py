@@ -26,7 +26,7 @@ import torch
 from repro_torch.core.range_tables import RangeExecTables
 from repro_torch.core.tables import PackedTables
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.chunk_scan import chunk_scan_kernel
+from repro_torch.kernels.chunk_scan import DEFAULT_CHUNK, chunk_scan_kernel
 from repro_torch.kernels.dispatch import dispatch_dt_traverse
 from repro_torch.kernels.dt_traverse import BLOCK_B
 from repro_torch.kernels.feature_window import (
@@ -84,6 +84,11 @@ def device_tables(tables: PackedTables, ret: RangeExecTables,
 # (regs (B, k), action (B,)) -- the contract of the engine's walk backends
 StepFn = Callable[[torch.Tensor, torch.Tensor, DeviceTables],
                   tuple[torch.Tensor, torch.Tensor]]
+
+
+#: the plain partition stage (registers then action by dense per-flow
+#: gathers of the SID-keyed tables); ``cuda_step`` is the kernels' stage
+fused_step: StepFn = _ref.fused_step
 
 
 @functools.lru_cache(maxsize=None)
@@ -249,7 +254,7 @@ def chunk_scan(
     bonus: torch.Tensor | None = None,
     state: torch.Tensor | None = None,
     *,
-    chunk: int = 128,
+    chunk: int = DEFAULT_CHUNK,
     impl: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Gated linear recurrence over (B, T, d) inputs; see

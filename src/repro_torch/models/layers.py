@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import torch
 import torch.nn.functional as F
@@ -35,6 +36,7 @@ from torch import nn
 from repro_torch.distributed.pspec import ParamDef, tree_items
 
 COMPUTE_DTYPE = torch.bfloat16
+Params = Any    # a nested dict of parameter tensors
 
 
 # ---------------------------------------------------------------------------

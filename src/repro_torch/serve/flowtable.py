@@ -195,11 +195,13 @@ class FlowTable:
 
     ``capacity = n_buckets * bucket_size`` slots; a flow key hashes to a
     home bucket and takes the first free slot there, probing the next
-    buckets (wrapping) on overflow.  An insert fails only when the WHOLE
-    table is full; the server then spills to the host.  The batch forms
-    serve one tick's UNIQUE flows per call: home buckets are hashed
-    vectorized, probing stays sequential because each insert's placement
-    depends on the previous one's occupancy.
+    buckets (wrapping) on overflow.  An insert fails (``insert`` returns
+    ``None``, ``insert_batch`` ``-1``) only when the WHOLE table is full;
+    the server then spills to the host.  The batch forms serve one tick's
+    UNIQUE flows per call: home buckets are hashed vectorized, probing
+    stays sequential because each insert's placement depends on the
+    previous one's occupancy.  ``probe_overflows`` counts the inserts
+    that left their home bucket.
     """
 
     def __init__(self, n_buckets: int, bucket_size: int):
@@ -210,10 +212,15 @@ class FlowTable:
         self.capacity = n_buckets * bucket_size
         self.key = np.full(self.capacity, -1, np.int64)   # -1 = free slot
         self._slot_of: dict[int, int] = {}
+        self.probe_overflows = 0    # inserts that left their home bucket
 
     @property
     def resident(self) -> int:
         return len(self._slot_of)
+
+    def lookup(self, key: int) -> int | None:
+        """The key's slot, or ``None`` where it is absent."""
+        return self._slot_of.get(key)
 
     def lookup_batch(self, keys: np.ndarray) -> np.ndarray:
         """Slot per key, ``-1`` where absent (one probe per key)."""
@@ -229,11 +236,19 @@ class FlowTable:
             free = np.nonzero(
                 self.key[base:base + self.bucket_size] == -1)[0]
             if free.size:
+                if probe:
+                    self.probe_overflows += 1
                 slot = base + int(free[0])
                 self.key[slot] = key
                 self._slot_of[key] = slot
                 return slot
         return -1
+
+    def insert(self, key: int) -> int | None:
+        """Insert one key: its slot, or ``None`` where the table is full."""
+        b0 = int(_mix64(np.int64(key)) % np.uint64(self.n_buckets))
+        slot = self._insert_at(int(key), b0)
+        return None if slot < 0 else slot
 
     def insert_batch(self, keys: np.ndarray) -> np.ndarray:
         """Insert keys in order; slot per key, ``-1`` where full."""

@@ -388,18 +388,22 @@ def resolve_route(engine: "Engine", options, win_pkts=None, *,
     A resolved ``options.plan`` wins; ``impl="auto"|"tuned"`` or
     ``compact="auto"`` resolve a plan through :func:`get_plan` for
     ``shape`` (default: the batch's own) over ``backends``; otherwise
-    the named backend (``None``: ``cuda`` on a CUDA engine, ``fused``
-    elsewhere) with the options' own compaction, and no plan.  The
-    caller checks the name against what its path can run.
+    the named backend (``"ref"`` is ``fused``; ``None``: the engine's
+    own ``impl``, and where that is ``None`` too ``cuda`` on a CUDA
+    engine, ``fused`` elsewhere) with the options' own compaction, and
+    no plan.  The caller checks the name against what its path can run.
     """
     default = "cuda" if engine.device.type == "cuda" else "fused"
+    impl = options.impl or engine.impl
+    if impl == "ref":
+        impl = "fused"
     plan = options.plan
-    if plan is None and (options.impl in ("auto", "tuned")
+    if plan is None and (impl in ("auto", "tuned")
                          or options.compact == "auto"):
-        plan = get_plan(engine, win_pkts, impl=options.impl or default,
+        plan = get_plan(engine, win_pkts, impl=impl or default,
                         shape=shape, backends=backends,
                         compact=options.compact, streaming=streaming)
     if plan is not None:
         return plan.backend, plan.compact, plan.compact_floor, plan
-    return (options.impl or default, bool(options.compact),
+    return (impl or default, bool(options.compact),
             options.compact_floor, None)

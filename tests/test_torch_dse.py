@@ -28,7 +28,9 @@ from repro.core import recirc as j_recirc  # noqa: E402
 from repro.core import resources as j_res  # noqa: E402
 from repro.core import tree as j_tree  # noqa: E402
 from repro.flows.synthetic import make_dataset as j_make_dataset  # noqa: E402
-from repro.flows.windows import full_flow_features  # noqa: E402
+from repro.flows.windows import (  # noqa: E402
+    full_flow_features as j_full_flow_features,
+)
 from repro.testing.hypothesis_compat import (  # noqa: E402
     given, settings, strategies as st,
 )
@@ -39,7 +41,9 @@ from repro_torch.core import resources as res  # noqa: E402
 from repro_torch.core import tree  # noqa: E402
 from repro_torch.core.partition import train_partitioned_dt  # noqa: E402
 from repro_torch.flows.synthetic import make_dataset  # noqa: E402
-from repro_torch.flows.windows import window_features  # noqa: E402
+from repro_torch.flows.windows import (  # noqa: E402
+    full_flow_features, window_features,
+)
 
 _TREE = ("feature", "threshold", "left", "right", "value")
 
@@ -266,37 +270,45 @@ def test_estimate_equals_jax(models):
 # ---------------------------------------------------------------------------
 @pytest.fixture(scope="module")
 def d1_full():
-    ds = j_make_dataset("d1", n_flows=1200)
-    tr, te = ds.split()
-    return (full_flow_features(tr), tr.labels, full_flow_features(te),
-            te.labels, ds.n_classes)
+    """Each package's own d1 split and full-flow features, ``(port,
+    jax)``; the two are first held equal (floats to the bit)."""
+    ds, ds_j = make_dataset("d1", n_flows=1200), j_make_dataset(
+        "d1", n_flows=1200)
+    (tr, te), (tr_j, te_j) = ds.split(), ds_j.split()
+    port = (full_flow_features(tr, device="cpu"), tr.labels,
+            full_flow_features(te, device="cpu"), te.labels, ds.n_classes)
+    jax = (j_full_flow_features(tr_j), tr_j.labels,
+           j_full_flow_features(te_j), te_j.labels, ds_j.n_classes)
+    for a, b in zip(port, jax):
+        _assert_same(a, b, "full-flow inputs")
+    return port, jax
 
 
 @pytest.mark.parametrize("style", ["nb", "leo"])
 def test_oneshot_topk_equals_jax(d1_full, style):
-    X_tr, y_tr, X_te, y_te, C = d1_full
+    (X_tr, y_tr, X_te, y_te, C), (Xj_tr, yj_tr, Xj_te, yj_te, Cj) = d1_full
     for k, depth in ((2, 5), (6, 13)):
         m = baselines.train_oneshot_topk(X_tr, y_tr, k=k, depth=depth,
                                          style=style, n_classes=C)
-        m_j = j_baselines.train_oneshot_topk(X_tr, y_tr, k=k, depth=depth,
-                                             style=style, n_classes=C)
+        m_j = j_baselines.train_oneshot_topk(Xj_tr, yj_tr, k=k, depth=depth,
+                                             style=style, n_classes=Cj)
         _assert_tree(m.tree, m_j.tree)
         for name in ("feature_ids", "k", "depth", "style", "tcam_entries",
                      "key_bits"):
             _assert_same(getattr(m, name), getattr(m_j, name), name)
-        assert m.f1(X_te, y_te, C) == m_j.f1(X_te, y_te, C)
+        assert m.f1(X_te, y_te, C) == m_j.f1(Xj_te, yj_te, Cj)
         for flows in (None, 100_000):
             _assert_same(m.resources(flows=flows),
                          m_j.resources(flows=flows), "resources")
 
 
 def test_best_oneshot_for_flows_equals_jax(d1_full):
-    X_tr, y_tr, X_te, y_te, C = d1_full
+    (X_tr, y_tr, X_te, y_te, C), (Xj_tr, yj_tr, Xj_te, yj_te, _) = d1_full
     kw = dict(flows=100_000, style="nb", n_classes=C, k_grid=(2, 6),
               depth_grid=(5, 13))
     m, f1 = baselines.best_oneshot_for_flows(X_tr, y_tr, X_te, y_te, **kw)
-    m_j, f1_j = j_baselines.best_oneshot_for_flows(X_tr, y_tr, X_te, y_te,
-                                                   **kw)
+    m_j, f1_j = j_baselines.best_oneshot_for_flows(Xj_tr, yj_tr, Xj_te,
+                                                   yj_te, **kw)
     assert f1 == f1_j and f1 > 0
     _assert_tree(m.tree, m_j.tree)
     assert (m.k, m.depth, m.tcam_entries) == (m_j.k, m_j.depth,

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from repro_torch.core import features as F
-from repro_torch.core.inference import Engine, EngineOptions
+from repro_torch.core.inference import Engine, EngineOptions, get_backend
 from repro_torch.core.partition import train_partitioned_dt
 from repro_torch.device import resolve_device
 from repro_torch.flows.synthetic import make_dataset
@@ -32,7 +32,10 @@ PORT = os.path.join(REPO, "src", "repro_torch")
 
 
 def _port_files():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    examples = os.path.join(REPO, "examples")
+    out = [os.path.join(REPO, "chip_smoke.py")] + [
+        os.path.join(examples, f) for f in os.listdir(examples)
+        if f.endswith("_torch.py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -190,6 +193,21 @@ def test_default_device_without_card_raises(no_card, tiny_model):
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
+
+
+def test_get_backend_without_card_raises(no_card):
+    """``get_backend(device=None)`` means the card, as every entry point
+    does: no silent fall back to the CPU.  Its own refusals come first and
+    read as before; a named device only picks the matrix's row."""
+    for impl in ("auto", "ref", "fused", "cuda", "looped"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            get_backend(impl)
+    with pytest.raises(ValueError, match="shape-dependent"):
+        get_backend("tuned")
+    with pytest.raises(ValueError, match="unknown impl"):
+        get_backend("pallas")
+    assert get_backend("auto", device="cpu").name == "fused"
+    assert get_backend("ref", device="cpu").name == "fused"
 
 
 def test_cuda_impl_on_cpu_engine_raises(tiny_model):
