@@ -133,7 +133,7 @@ exits nonzero; nothing is caught and passed over):
 6. serve_check -- both fold kernels against their plain versions at the
    serving rank width and at a width that is no multiple of a block; the
    tick kernel against its plain version (the rank loop, on a clone of
-   the same state) on every tick of a 4,096-flow prefix with a 512-slot
+   the same state) on every tick of a 1,024-flow prefix with a 512-slot
    table (spill) and a timeout, on the 8 main-stream ticks up to the
    traced one, and on every tick of small streams served by k = 9 and
    k = 41 models (the tick kernel's capacity instantiations): every
@@ -275,7 +275,9 @@ exits nonzero; nothing is caught and passed over):
    mean of the last 5 below the first, tokens/s, step p50/p99, AdamW's ms
    and device kernels, peak memory, a traced step's idle share, each
    save's and the restore's seconds and GB/s, steps with a write in
-   flight; the restored ``step_30`` equals the run's state on every leaf
+   flight, every layer rematerialised in the backward as in JAX (then a
+   few steps timed with remat on and off in turns); the restored
+   ``step_30`` equals the run's state on every leaf
    (``torch.equal``), and a second run over a directory holding only
    ``step_25`` resumes there with step 26's loss ``==`` the first run's
    (later steps' drift printed); one ``make_train_step`` step of the
@@ -287,7 +289,18 @@ exits nonzero; nothing is caught and passed over):
    floor is above it; reduced RWKV6 and Zamba2 losses under autograd on
    the card raise ``NoBackwardError`` and their no-grad forwards launch
    ``chunk_scan``.  No hand-written kernel: JAX trains on XLA products;
-10h. dist -- the multi-device half with one rank: a one-rank NCCL group
+10h. train_long -- ``train_4k``'s 4,096-token rows: (a) ``launch.train``
+   on ``tinyllama-1.1b`` uncut, 4 steps of 2 rows in 2 microbatches with
+   remat, no checkpoint: finite losses, step p50/p99, tokens/s, peak
+   memory and the state held, beside the dry run's one-chip budget
+   (``analysis.memory``) for the shape; (b) the model cut to 4 layers,
+   one row: ``loss_and_grads`` without remat (no checkpoint region at
+   all), with, and without again: the loss with remat ``==`` without,
+   every gradient within ``REMAT_REPEAT_FACTOR`` x the two remat-off
+   runs' largest difference (so bit for bit where those agree), and the
+   activation peak with remat at most ``REMAT_PEAK_RATIO`` of the one
+   without.  No hand-written kernel;
+10i. dist -- the multi-device half with one rank: a one-rank NCCL group
    (``distributed.group.init``, a ``file://`` store) and a (1, 1) ("data",
    "model") ``DeviceMesh`` on the card; ``compressed_psum`` over every
    leaf of ``tinyllama-1.1b``'s uncut parameter shapes (1.1 B f32 values
@@ -330,9 +343,10 @@ SERVE_FLOWS = 1 << 17     # flows streamed through the live flow table
 SERVE_CONCURRENCY = 65536  # mean concurrent flows of the steady stream
 SERVE_TICK = 32768        # packets per ingest tick
 SERVE_TABLE = (32768, 8)  # n_buckets, bucket_size: 2^18 slots
-CHECK_FLOWS = 2048        # prefix served by both routes in serve_check
+CHECK_FLOWS = 1024        # prefix served by both routes in serve_check
 #                           (the plain rank loop over its ticks is most
-#                           of that phase's time)
+#                           of that phase's time; 208 of its flows spill
+#                           and 14 are evicted)
 CHECK_TABLE = (64, 8)     # 512 slots: the prefix overflows into the spill
 CHECK_CONCURRENCY = 2048.0
 CHECK_TIMEOUT = 0.05      # stream seconds; evicts some idle flows (a
@@ -417,6 +431,13 @@ TRAIN_VS_CPU_TOL = {"loss_rel": 1e-5, "grad_norm_rel": 3e-4,
                     "mu_rel": 1.6e-3, "nu_rel": 3e-3, "scale_rel_max": 2e-3,
                     "mu_rel_where_levels_agree": 2e-3}
 TRAIN_SCAN_ARCHS = ("rwkv6-1.6b", "zamba2-2.7b")  # chunk_scan families
+# phase train: steps timed with remat (True) and without, in turns
+TRAIN_REMAT_AB = (True, False, False, True, True, False)
+TRAIN_LONG_SHAPE = "train_4k"       # phase train_long: its rows' length
+TRAIN_LONG_STEPS, TRAIN_LONG_BATCH, TRAIN_LONG_MICRO = 4, 2, 2
+TRAIN_LONG_CUT = 4         # layers of the remat-against-none comparison
+REMAT_PEAK_RATIO = 0.25    # its activation peak with remat over without
+REMAT_REPEAT_FACTOR = 4    # its gradient gap over the card's own repeat
 DIST_TREE_VALUES = 1_100_048_384   # phase dist: TRAIN_ARCH's parameters
 SCAN_KERNELS = {"chunked": 3, "step": 1}  # chunk_scan's device kernels a
 #                           call by design: C >= 2 (prep, state pass,
@@ -2577,7 +2598,7 @@ def train_phase(card, smi: str) -> float:
     from repro_torch.data.tokens import TokenPipeline, on_device
     from repro_torch.distributed import pspec
     from repro_torch.launch import train as launch_train
-    from repro_torch.models import model_zoo
+    from repro_torch.models import model_zoo, transformer
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.optimizer import AdamW, param_tree, warmup_cosine
     from repro_torch.train.train_step import TrainLoopCfg, make_train_step
@@ -2702,6 +2723,22 @@ def train_phase(card, smi: str) -> float:
             microbatches=TRAIN_MICRO))
         batch = on_device(card)(pipe.batch_at(TRAIN_STEPS))
         traced = profile_run(lambda: float(step_fn(state, batch)[1]["loss"]))
+
+        def timed_step(remat: bool) -> float:
+            transformer.set_remat(remat)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            float(step_fn(state, batch)[1]["loss"])
+            return time.perf_counter() - t0
+
+        remat_ab = {"on_s": [], "off_s": []}
+        try:
+            for on in TRAIN_REMAT_AB:
+                remat_ab["on_s" if on else "off_s"].append(timed_step(on))
+        finally:
+            transformer.set_remat(True)
+        remat_ab["p50_on_over_off"] = (statistics.median(remat_ab["on_s"])
+                                       / statistics.median(remat_ab["off_s"]))
         grads = pspec.tree_map(torch.zeros_like, param_tree(state.params))
         opt_ms = cuda_ms(lambda: opt.update(state, grads), reps=5, warmup=1)
         opt_trace = profile_run(lambda: opt.update(state, grads))
@@ -2731,6 +2768,7 @@ def train_phase(card, smi: str) -> float:
          reckoned_state_gb={"params": 4 * n_params / 1e9,
                             "grads": 4 * n_params / 1e9,
                             "mu_nu": 8 * n_params / 1e9},
+         remat=True, remat_ab=remat_ab,
          traced_step=traced, saves=saves, restore_s=restore_s,
          restore_gb_per_s=saves[-1]["bytes"] / 1e9 / restore_s,
          restored_equals_saved=True, run_b_s=run_b_s, run_b_log=log_b,
@@ -2740,6 +2778,147 @@ def train_phase(card, smi: str) -> float:
     emit("train_refusal", card=smi, **train_scan_refusal(card),
          phase_s=time.perf_counter() - t_phase)
     return pct(quiet, 50)
+
+
+def train_long_phase(card, smi: str) -> None:
+    """Phase ``train_long``: training at ``train_4k``'s 4,096-token rows,
+    which only remat makes fit: without it each layer of the blockwise
+    attention keeps two f32 (1, 32, 4096, 512) tensors a KV block for the
+    backward, ~4.3 GB a layer a row.  (a) ``launch.train`` on
+    ``tinyllama-1.1b`` uncut, ``TRAIN_LONG_STEPS`` steps of
+    ``TRAIN_LONG_BATCH`` rows in ``TRAIN_LONG_MICRO`` microbatches (one
+    row each), no checkpoint; (b) the model cut to ``TRAIN_LONG_CUT``
+    layers, one row, ``loss_and_grads`` without remat, with, and without
+    again.  Gates in the module docstring."""
+    import contextlib
+    import dataclasses
+    import io
+
+    import torch
+    from repro_torch.analysis import memory as memory_lib
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import SHAPES, ShapeCfg
+    from repro_torch.data.tokens import TokenPipeline, on_device
+    from repro_torch.distributed import pspec
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import layers as L
+    from repro_torch.models import model_zoo, transformer
+    from repro_torch.train.train_step import loss_and_grads
+
+    t_phase = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH)
+    check((cfg.n_layers, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+           cfg.head_dim, cfg.d_ff, cfg.vocab) == (22, 2048, 32, 4, 64, 5632,
+                                                  32000),
+          f"{TRAIN_ARCH} at its published widths")
+    seq = SHAPES[TRAIN_LONG_SHAPE].seq_len
+    check(seq >= L._BLOCKWISE_MIN and transformer._USE_REMAT,
+          f"{seq}-token rows take the blockwise path, remat on")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- (a) the launcher at full width -----------------------------------
+    torch.cuda.synchronize()
+    held0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    log = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        run = launch_train.run([
+            "--arch", TRAIN_ARCH, "--steps", str(TRAIN_LONG_STEPS),
+            "--batch", str(TRAIN_LONG_BATCH), "--seq", str(seq),
+            "--microbatches", str(TRAIN_LONG_MICRO), "--lr", str(TRAIN_LR),
+            "--log-every", "1", "--seed", "0"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held0
+    state = torch.cuda.memory_allocated() - held0    # params, mu, nu, step
+    losses, step_s = run.losses, run.step_s
+    check(len(losses) == TRAIN_LONG_STEPS and all(np.isfinite(losses)),
+          f"{TRAIN_LONG_STEPS} finite losses at {seq}-token rows: {losses}")
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan = memory_lib.budget(
+        cfg, ShapeCfg(TRAIN_LONG_SHAPE, seq, TRAIN_LONG_BATCH, "train"), {},
+        model_zoo.get_model(cfg).param_defs(cfg))
+    pct = lambda a, q: float(np.percentile(a, q))
+    warm = step_s[1:]                           # the first sets up cuBLAS
+    emit("train_long", card=smi, arch=TRAIN_ARCH, steps=TRAIN_LONG_STEPS,
+         batch=TRAIN_LONG_BATCH, seq=seq, microbatches=TRAIN_LONG_MICRO,
+         remat=True, losses=losses, launcher_log=log.getvalue().splitlines(),
+         step_s=step_s, step_p50_s=pct(warm, 50), step_p99_s=pct(warm, 99),
+         step_tokens_per_s=TRAIN_LONG_BATCH * seq / pct(warm, 50),
+         run_s=run_s, held_before_gb=held0 / 1e9, peak_gb=peak / 1e9,
+         state_gb=state / 1e9, peak_above_state_gb=(peak - state) / 1e9,
+         dry_run_one_chip_gb={
+             "state": (plan.params_bytes + plan.optimizer_bytes
+                       + plan.grads_bytes) / 1e9,
+             "activation_bytes": plan.activation_bytes / 1e9,
+             "total": plan.total_bytes / 1e9, "fits": plan.fits},
+         phase_s=time.perf_counter() - t_phase)
+
+    # -- (b) remat against none, TRAIN_LONG_CUT layers, one row -----------
+    cut = dataclasses.replace(cfg, n_layers=TRAIN_LONG_CUT)
+    zoo = model_zoo.get_model(cut)
+    gen = torch.Generator(device=card).manual_seed(0)
+    model = zoo.build(cut, pspec.init_params(zoo.param_defs(cut), gen, card))
+    batch = on_device(card)(TokenPipeline(cut.vocab, 1, seq, seed=0)
+                            .batch_at(0))
+
+    # without remat: layer remat off, and every region (the blockwise
+    # steps' too, which have no switch, as in JAX) run as a plain call
+    checkpointed = L.remat
+
+    def one(remat: bool) -> dict:
+        transformer.set_remat(remat)
+        L.remat = checkpointed if remat else (lambda fn: fn)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, grads = loss_and_grads(cut, model, batch)
+        torch.cuda.synchronize()
+        return {"s": time.perf_counter() - t0, "loss": loss,
+                "grads": dict(pspec.tree_items(grads)),
+                "activation_peak": torch.cuda.max_memory_allocated() - held}
+
+    try:
+        off, on, rep = one(False), one(True), one(False)
+    finally:
+        transformer.set_remat(True)
+        L.remat = checkpointed
+    gap = lambda a, b: 0.0 if torch.equal(a, b) else float(
+        (a - b).abs().max())
+    repeat = max(gap(rep["grads"][n], off["grads"][n]) for n in off["grads"])
+    remat_gap = {n: gap(on["grads"][n], off["grads"][n])
+                 for n in off["grads"]}
+    ratio = on["activation_peak"] / off["activation_peak"]
+    emit("train_long_remat", card=smi, arch=f"{TRAIN_ARCH} cut to "
+         f"{TRAIN_LONG_CUT} layers", rows=1, seq=seq,
+         loss={"off": float(off["loss"]), "on": float(on["loss"]),
+               "off_again": float(rep["loss"])},
+         step_s={"off": off["s"], "on": on["s"], "off_again": rep["s"]},
+         activation_peak_gb={k: r["activation_peak"] / 1e9 for k, r in
+                             (("off", off), ("on", on), ("off_again", rep))},
+         peak_ratio=ratio, peak_ratio_limit=REMAT_PEAK_RATIO,
+         grad_repeat_max_abs=repeat,
+         grad_remat_max_abs=max(remat_gap.values()),
+         grad_leaves_unequal=sum(g > 0 for g in remat_gap.values()),
+         grad_leaves=len(remat_gap), phase_s=time.perf_counter() - t_phase)
+    check(bool(torch.isfinite(on["loss"]))
+          and torch.equal(on["loss"], off["loss"]),
+          f"the loss with remat == without: {float(on['loss'])} vs "
+          f"{float(off['loss'])}")
+    check(max(remat_gap.values()) <= REMAT_REPEAT_FACTOR * repeat,
+          f"every gradient with remat within {REMAT_REPEAT_FACTOR} x the "
+          f"card's own repeat ({repeat}) of the one without: "
+          f"{sorted(remat_gap.items(), key=lambda kv: -kv[1])[:3]}")
+    check(ratio <= REMAT_PEAK_RATIO, f"the activation peak with remat "
+          f"{ratio:.3f} of the one without, at most {REMAT_PEAK_RATIO}")
+    del model, off, on, rep
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def dist_phase(card, smi: str, train_p50_s: float) -> None:
@@ -5178,6 +5357,7 @@ def main() -> int:
     lm_mla_phase(card, smi)
     lm_audio_phase(card, smi)
     train_p50_s = train_phase(card, smi)
+    train_long_phase(card, smi)
     dist_phase(card, smi, train_p50_s)
     # chunk_scan's row: RWKV6's bonus form (phase lm) and Zamba2's GLA
     # form (phase lm_hybrid), each path's launches counted from zero

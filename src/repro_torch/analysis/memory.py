@@ -3,10 +3,13 @@
 
 The persistent state (parameter, optimizer, gradient and cache bytes) is
 computed from the resolved shardings leaf by leaf; activations use JAX's
-saved-residual formula of its remat policy.  That formula is the plan's
-model, not the port's eager program (which keeps no remat and holds what
-autograd saves): the budget answers what a chip of the mesh would hold
-under JAX's plan, judged against the H100's memory.
+saved-residual formula of its remat policy, term for term.  The port's
+train step runs the same remat (``models.transformer.set_remat``: each
+layer recomputed in the backward, each blockwise step checkpointed, remat
+off in the FSDP-2D train layout), so the formula describes the port's own
+program; where the port keeps a layer's input and residual sum, the
+formula counts three (B, T, D) tensors a layer, one more.  The budget is
+judged against the H100's memory.
 """
 from __future__ import annotations
 
@@ -66,8 +69,7 @@ def activation_estimate(cfg: ArchConfig, shape: ShapeCfg,
     attention materialises f32 probs for the live layer.  Opt layout:
     batch sharded over ALL mesh axes (FSDP-2D), remat off (~10 saved
     tensors/layer), blockwise attention bounds the live set to one
-    512-wide KV block.  A model of the plan, not of the port's eager
-    program."""
+    512-wide KV block.  The port's train step remats the same way."""
     if shape.kind == "decode":
         return 0
     B_local = max(shape.global_batch // dp_shards, 1)

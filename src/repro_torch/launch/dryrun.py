@@ -23,7 +23,10 @@ a record holds, per cell, what the port can say exactly:
 * ``counts``, in place of ``cost_analysis``: the step (train: loss,
   backward and AdamW; prefill; or decode over ``abstract_cache`` filled
   to its last position) run once under ``analysis.roofline.OpCounter`` on
-  ``meta`` at full width, full depth and the shape's global batch;
+  ``meta`` at full width, full depth and the shape's global batch; a
+  train step's counts include the forward its remat recomputes in the
+  backward, as JAX's compiled HLO does (the FSDP-2D train cells of
+  ``opt`` run without remat, as in JAX);
   ``t_trace_s`` in place of the lower and compile times.  A serving step
   is counted on its second call: the first casts the bf16 weight copies,
   as a server's first step does;
@@ -61,6 +64,7 @@ from repro_torch.launch.mesh import Mesh, make_production_mesh, mesh_shape_dict
 from repro_torch.models import layers as L
 from repro_torch.models import model_zoo
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import transformer
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
@@ -96,7 +100,7 @@ def _layout(cfg: ArchConfig, shape: ShapeCfg, layout: str):
     return None, None, "tp"
 
 
-def _set_switches(layout: str) -> None:
+def _set_switches(layout: str, batch_layout: str) -> None:
     if layout == "base":
         # paper-faithful baseline: naive (probs-materialising) attention,
         # scatter MoE dispatch, full-cache window masking
@@ -105,12 +109,15 @@ def _set_switches(layout: str) -> None:
         moe_lib.set_einsum_decode(False)
     if layout == "opt":
         L.set_blockwise_min(2048)
+        if batch_layout == "fsdp2d":
+            transformer.set_remat(False)   # ample per-chip headroom
 
 
 def _restore_switches() -> None:
     L.set_blockwise_min(2048)
     L.set_window_slice(True)
     moe_lib.set_einsum_decode(True)
+    transformer.set_remat(True)
 
 
 def _cache(cfg: ArchConfig, shape: ShapeCfg, mesh: Mesh, layout: str):
@@ -126,9 +133,10 @@ def build_cell(cfg: ArchConfig, shape: ShapeCfg, mesh: Mesh,
     """layout:
       base -- paper-faithful: TP+FSDP sharding, naive attention, scatter
               MoE dispatch, full-cache window masking
-      opt  -- FSDP-2D train layout (dense archs), resident bf16 weights +
-              EP-2D experts for serving, blockwise attention, einsum MoE
-              decode dispatch, window-local cache slicing
+      opt  -- FSDP-2D train layout (dense archs, no remat), resident
+              bf16 weights + EP-2D experts for serving, blockwise
+              attention, einsum MoE decode dispatch, window-local cache
+              slicing
 
     Sets the model switches of ``layout``; the caller restores them
     (:func:`trace_cell` does, in a ``finally``).  The port's models hold
@@ -139,11 +147,11 @@ def build_cell(cfg: ArchConfig, shape: ShapeCfg, mesh: Mesh,
     from repro_torch.train.optimizer import AdamW
     from repro_torch.train.train_step import make_train_step
 
-    _set_switches(layout)
+    rules, param_dtype, blayout = _layout(cfg, shape, layout)
+    _set_switches(layout, blayout)
     zoo = model_zoo.get_model(cfg)
     defs = zoo.param_defs(cfg)
     msizes = mesh_shape_dict(mesh)
-    rules, param_dtype, blayout = _layout(cfg, shape, layout)
     pspecs = pspec_lib.resolve_specs(defs, msizes, rules)
     params_abs = pspec_lib.abstract_params(defs, dtype=param_dtype)
     batch_abs = model_zoo.input_specs(cfg, shape)

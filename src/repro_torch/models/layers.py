@@ -9,7 +9,7 @@ statistics and the loss in f32, parameters stay f32.
 :class:`LMModule` holds a model's parameter tree and the bf16 copies its
 products read.
 
-Four JAX functions have no counterpart, each for a reason:
+Three JAX functions have no counterpart, each for a reason:
 
 * ``shard`` (a sharding constraint on an activation inside the
   partitioned program) and ``set_layout`` (which rewrites the module
@@ -18,20 +18,24 @@ Four JAX functions have no counterpart, each for a reason:
   constrain; the layout the sharding rules need is an argument of
   ``distributed.sharding.batch_spec`` and ``cache_spec`` instead;
 * ``scan_layers``: XLA compiles a scan's body once, while eager PyTorch
-  gains nothing from it, so the models loop over the layers in Python;
-* remat (``jax.checkpoint`` of each layer): autograd keeps what the
-  backward needs, and the port's trainer fits its one card without
-  recomputation (the dry run's activation bytes keep JAX's remat model).
+  gains nothing from it, so the models loop over the layers in Python.
+
+Remat is JAX's, through non-reentrant ``torch.utils.checkpoint``
+(:func:`remat`): each step of the blockwise attention here, and each
+layer of a training forward in the models (``transformer.set_remat``).
+A checkpoint runs only where autograd records; serving runs the plain
+ops.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.pspec import ParamDef, tree_items
 
@@ -101,6 +105,23 @@ class LMModule(nn.Module):
             hit = (p._version, p.detach().to(COMPUTE_DTYPE))
             self._bf16[key] = hit
         return hit[1] if index is None else hit[1][index]
+
+
+def records(*tensors: torch.Tensor) -> bool:
+    """Autograd records an op on these tensors: grad mode is on and one of
+    them requires a gradient."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def remat(fn: Callable) -> Callable:
+    """``jax.checkpoint(fn)`` with no policy: ``fn`` as one non-reentrant
+    checkpoint region, which keeps its arguments and recomputes the rest
+    in the backward.  No op of the models draws random numbers, so no RNG
+    state is stashed (``preserve_rng_state=False``)."""
+    def run(*args):
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -274,7 +295,8 @@ def _attend_blockwise(q, k, v, *, causal, q_offset, kv_len, prefix_len,
     schedule in plain PyTorch), every step in f32.  Mathematically
     identical to :func:`attend`'s naive path; the tests hold the two to
     each other and to JAX's.  A Python loop over the blocks stands in for
-    JAX's checkpointed scan (no backward pass needs it here)."""
+    JAX's scan; as in JAX each step is rematerialised where autograd
+    records, so the backward holds one block's logits at a time."""
     B, Tq, Hq, Dh = q.shape
     Tk, Hkv = k.shape[1], k.shape[2]
     k, v = _kv_heads(k, v, Hq // Hkv)
@@ -284,14 +306,9 @@ def _attend_blockwise(q, k, v, *, causal, q_offset, kv_len, prefix_len,
         k = F.pad(k, (0, 0, 0, 0, 0, pad))
         v = F.pad(v, (0, 0, 0, 0, 0, pad))
     qf = q.float()
-    acc = torch.zeros((B, Hq, Tq, v.shape[-1]), dtype=torch.float32,
-                      device=q.device)
-    m = torch.full((B, Hq, Tq), float("-inf"), dtype=torch.float32,
-                   device=q.device)
-    denom = torch.zeros((B, Hq, Tq), dtype=torch.float32, device=q.device)
-    for k0 in range(0, Tk + pad, blk):
-        ki = k[:, k0:k0 + blk].float()
-        vi = v[:, k0:k0 + blk].float()
+
+    def step(acc, m, denom, ki, vi, k0: int):
+        ki, vi = ki.float(), vi.float()
         lg = torch.einsum("bthd,bshd->bhts", qf, ki) * scale
         mask = _mask(Tq, k0, blk, device=q.device, causal=causal,
                      q_offset=q_offset, kv_len=kv_len,
@@ -304,7 +321,18 @@ def _attend_blockwise(q, k, v, *, causal, q_offset, kv_len, prefix_len,
         denom = denom * alpha + p.sum(dim=-1)
         acc = acc * alpha[..., None] + torch.einsum("bhts,bshd->bhtd", p,
                                                     vi)
-        m = m_new
+        return acc, m_new, denom
+
+    if records(q, k, v):
+        step = remat(step)
+    acc = torch.zeros((B, Hq, Tq, v.shape[-1]), dtype=torch.float32,
+                      device=q.device)
+    m = torch.full((B, Hq, Tq), float("-inf"), dtype=torch.float32,
+                   device=q.device)
+    denom = torch.zeros((B, Hq, Tq), dtype=torch.float32, device=q.device)
+    for k0 in range(0, Tk + pad, blk):
+        acc, m, denom = step(acc, m, denom, k[:, k0:k0 + blk],
+                             v[:, k0:k0 + blk], k0)
     out = acc / torch.clamp(denom, min=1e-30)[..., None]
     return out.transpose(1, 2).to(v.dtype)
 

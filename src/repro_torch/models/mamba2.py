@@ -16,9 +16,11 @@ d_skip,out_norm,w_out}`` stacked over the layers, ``shared.{ln1,attn.*,
 ln2,mlp.*}``, ``ln_f``, ``head``), so a converted JAX tree loads one to
 one (``convert.zamba2_params_from_arrays``).  Python loops over the
 groups and their layers take the place of the two nested
-``scan_layers``; remat has no counterpart.  The JAX dtype steps are
-kept: activations and products in bf16, the decay, the recurrence and
-the skip term in f32.
+``scan_layers``; as in JAX, a training forward under autograd
+rematerialises each group (its ``shared_attn_every`` Mamba2 layers and
+the shared block: one checkpoint region, no policy).  The JAX dtype
+steps are kept: activations and products in bf16, the decay, the
+recurrence and the skip term in f32.
 
 Decode state: per layer the depthwise-conv tail (B, conv_dim - 1, C)
 bf16 and the matrix state (B*H, N, hd) f32 -- O(1) in context; per group
@@ -239,20 +241,30 @@ class Zamba2(L.LMModule):
         m = None if cache is None else cache["mamba"]
         kv = None if cache is None else cache["attn"]
         new_conv, new_s = [], []
-        for g in range(cfg.n_layers // every):
+
+        def group(g, x):
+            new_st = []
             for i in range(g * every, (g + 1) * every):
                 st = None if m is None else {"conv": m["conv"][i],
                                              "S": m["S"][i]}
-                x, new_st = self.mamba_layers(self, i, x, st, impl)
-                if new_st is not None:
-                    new_conv.append(new_st["conv"])
-                    new_s.append(new_st["S"])
+                x, st = self.mamba_layers(self, i, x, st, impl)
+                new_st.append(st)
             if self.shared is not None:
                 # group g's cache is written in place at [len, len + T)
                 gc = None if kv is None else {"k": kv["k"][g],
                                               "v": kv["v"][g],
                                               "len": kv["len"]}
                 x, _ = self.shared(self, x, gc)
+            return x, new_st
+
+        if mode == "train" and L.records(x, *self.parameters()):
+            group = L.remat(group)
+        for g in range(cfg.n_layers // every):
+            x, new_st = group(g, x)
+            for st in new_st:
+                if st is not None:
+                    new_conv.append(st["conv"])
+                    new_s.append(st["S"])
         x = L.rmsnorm(self.ln_f, x, cfg.norm_eps)
         lg = L.logits(self.bf16(self, "head"), x, transpose=False)
         new_cache = None

@@ -8,7 +8,8 @@ parameter tree (``embed``, ``layers.tm.w_r``, ``layers.cm.wk``,
 ``ln_f``, ``head``, ...), each layer parameter stacked over the layers as
 in JAX, so a converted JAX tree loads one to one
 (``convert.rwkv_params_from_arrays``).  A Python loop over the layers
-takes the place of ``scan_layers``.
+takes the place of ``scan_layers``; as in JAX, a training forward under
+autograd rematerialises each layer (one checkpoint region, no policy).
 
 The JAX dtype steps are kept: activations in bf16, each weight cast to
 bf16 at its product, the decay ``exp(-exp(wlog))`` and the recurrence in
@@ -188,18 +189,24 @@ class RWKV6(L.LMModule):
         lay = self.layers
         new = None if cache is None else {"tm": {"shift": [], "S": []},
                                           "cm": {"shift": []}}
-        for i in range(cfg.n_layers):
-            tm_state = None if cache is None else {
-                "shift": cache["tm"]["shift"][i], "S": cache["tm"]["S"][i]}
-            cm_state = None if cache is None else {
-                "shift": cache["cm"]["shift"][i]}
+
+        def block(i, x, tm_state, cm_state):
             a, tm_new = lay.tm(self, i, L.rmsnorm(lay.ln1[i], x,
                                                   cfg.norm_eps),
                                tm_state, impl)
             x = x + a
             b, cm_new = lay.cm(self, i, L.rmsnorm(lay.ln2[i], x,
                                                   cfg.norm_eps), cm_state)
-            x = x + b
+            return x + b, tm_new, cm_new
+
+        if mode == "train" and L.records(x, *self.parameters()):
+            block = L.remat(block)
+        for i in range(cfg.n_layers):
+            tm_state = None if cache is None else {
+                "shift": cache["tm"]["shift"][i], "S": cache["tm"]["S"][i]}
+            cm_state = None if cache is None else {
+                "shift": cache["cm"]["shift"][i]}
+            x, tm_new, cm_new = block(i, x, tm_state, cm_state)
             if new is not None:
                 new["tm"]["shift"].append(tm_new["shift"])
                 new["tm"]["S"].append(tm_new["S"])

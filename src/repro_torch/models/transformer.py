@@ -10,8 +10,18 @@ wv_b,wo}``, ``layers.mlp.wg`` or ``layers.moe.router``, ``lead_layers.*``,
 ``ln_f``, ``head``, ``img_proj``), each layer parameter stacked over the
 layers as in JAX, so a converted JAX tree loads one to one
 (``convert.transformer_params_from_arrays``).  Python loops over the
-lead layers and the layers take the place of ``_scan_layers``; remat has
-no counterpart (serving does not need it).
+lead layers and the layers take the place of ``_scan_layers``.
+
+Remat, as in JAX: a training forward under autograd rematerialises each
+layer (``set_remat``, on by default; the dry run turns it off for the
+FSDP-2D train cells).  JAX's ``REMAT_POLICY`` keeps a layer's input and
+its two named outputs, ``attn_out`` and ``mlp_out``; here each layer is
+two checkpoint regions, the attention and the FFN, so autograd keeps the
+layer's input and the residual sum ``x + attn_out`` (the FFN's input),
+one (B, T, D) tensor fewer than JAX's set, and recomputes the rest in
+the backward.  The MoE ``aux`` loss leaves the FFN region as an output;
+the per-layer bf16 casts happen inside the regions, so none outlives
+its layer.
 
 Modes, as in JAX:
   train   -- causal forward, next-token CE loss (``loss_fn``); the MoE
@@ -30,6 +40,8 @@ all layers, where JAX stacks an int32 ``len`` per layer (see
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
 
@@ -41,6 +53,22 @@ from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import AttnShape, COMPUTE_DTYPE
 
 MODES = ("train", "prefill", "decode")
+
+# JAX's jax.checkpoint_policies.save_only_these_names(...): the values a
+# rematerialised layer keeps besides its input (see the module docstring
+# for the port's two regions)
+REMAT_POLICY = ("attn_out", "mlp_out")
+
+# remat is a memory<->compute trade; under the FSDP-2D train layout the
+# per-chip activation footprint is small, so the dry run turns it off there
+_USE_REMAT = True
+
+
+def set_remat(v: bool) -> None:
+    """Rematerialise each layer of a training forward (on) or keep every
+    activation autograd saves (off)."""
+    global _USE_REMAT
+    _USE_REMAT = bool(v)
 
 
 def _attn_shape(cfg: ArchConfig) -> AttnShape:
@@ -139,10 +167,10 @@ class Transformer(L.LMModule):
         self.img_proj = (nn.Parameter(tree["img_proj"])
                          if "img_proj" in tree else None)
 
-    def _block(self, lay: _Layers, i: int, x: torch.Tensor,
-               cache: dict | None, *, mode: str, prefix_len: int):
-        """Layer ``i`` of the stack ``lay``: attention, then the dense MLP
-        or the MoE FFN (dropless unless training); returns ``(x, aux)``."""
+    def _attn(self, lay: _Layers, i: int, x: torch.Tensor,
+              cache: dict | None, *, mode: str,
+              prefix_len: int) -> torch.Tensor:
+        """Layer ``i``'s attention output (JAX's ``attn_out``)."""
         cfg = self.cfg
         h = L.rmsnorm(lay.ln1[i], x, cfg.norm_eps)
         if cfg.mla is not None:
@@ -153,14 +181,18 @@ class Transformer(L.LMModule):
                     for n, p in lay.attn.named_parameters()}
             a, _ = mla_lib.mla_attention(attn, h, cfg, cache=cache,
                                          absorbed=mode == "decode")
-        else:
-            attn = {n: self.bf16(lay.attn, n, i)
-                    for n in ("wq", "wk", "wv", "wo")}
-            a, _ = L.attention_block(
-                attn, h, shape=_attn_shape(cfg), rope_theta=cfg.rope_theta,
-                prefix_len=prefix_len, window=cfg.sliding_window,
-                cache=cache)
-        x = x + a
+            return a
+        attn = {n: self.bf16(lay.attn, n, i)
+                for n in ("wq", "wk", "wv", "wo")}
+        a, _ = L.attention_block(
+            attn, h, shape=_attn_shape(cfg), rope_theta=cfg.rope_theta,
+            prefix_len=prefix_len, window=cfg.sliding_window, cache=cache)
+        return a
+
+    def _ffn(self, lay: _Layers, i: int, x: torch.Tensor, *, mode: str):
+        """Layer ``i``'s FFN output (JAX's ``mlp_out``) and its MoE load-
+        balance loss (``None`` in the dense family)."""
+        cfg = self.cfg
         h = L.rmsnorm(lay.ln2[i], x, cfg.norm_eps)
         if lay.moe is not None:
             mo = lay.moe
@@ -171,12 +203,26 @@ class Transformer(L.LMModule):
             if mo.shared is not None:
                 p["shared"] = {n: self.bf16(mo.shared, n, i)
                                for n in ("wg", "wu", "wd")}
-            out, aux = moe_lib.moe_ffn(p, h, cfg.moe,
-                                       dropless=mode != "train")
-            return x + out, aux
+            return moe_lib.moe_ffn(p, h, cfg.moe, dropless=mode != "train")
         ffn = {n: self.bf16(lay.mlp, n, i) for n, _ in
                lay.mlp.named_parameters()}
-        return x + L.mlp(ffn, h, cfg.act), None
+        return L.mlp(ffn, h, cfg.act), None
+
+    def _block(self, lay: _Layers, i: int, x: torch.Tensor,
+               cache: dict | None, *, mode: str, prefix_len: int,
+               remat: bool = False):
+        """Layer ``i`` of the stack ``lay``: attention, then the dense MLP
+        or the MoE FFN (dropless unless training); returns ``(x, aux)``.
+        With ``remat`` the attention and the FFN are each one checkpoint
+        region."""
+        attn = functools.partial(self._attn, lay, i, cache=cache, mode=mode,
+                                 prefix_len=prefix_len)
+        ffn = functools.partial(self._ffn, lay, i, mode=mode)
+        if remat:
+            attn, ffn = L.remat(attn), L.remat(ffn)
+        x = x + attn(x)
+        out, aux = ffn(x)
+        return x + out, aux
 
     def forward(self, batch: dict, *, mode: str = "train",
                 cache: dict | None = None):
@@ -194,6 +240,8 @@ class Transformer(L.LMModule):
         if scale is not None:
             x = x * scale
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = (mode == "train" and _USE_REMAT
+                 and L.records(x, *self.parameters()))
         new_cache = None if cache is None else {}
         stacks = [("layers", self.layers)]
         if self.lead_layers is not None:
@@ -204,7 +252,7 @@ class Transformer(L.LMModule):
                 layer_cache = None if kv is None else {
                     n: (t if n == "len" else t[i]) for n, t in kv.items()}
                 x, a = self._block(lay, i, x, layer_cache, mode=mode,
-                                   prefix_len=prefix_len)
+                                   prefix_len=prefix_len, remat=remat)
                 if a is not None:
                     aux = aux + a
             if kv is not None:

@@ -13,8 +13,10 @@ tree (``embed``, ``dec_pos``, ``enc_layers.{ln1,attn.*,ln2,mlp.*}`` and
 ``dec_layers.{ln1,attn.*,ln_x,xattn.*,ln2,mlp.*}`` stacked over the
 layers, ``ln_enc``, ``ln_f``), so a converted JAX tree loads one to one
 (``convert.whisper_params_from_arrays``).  Python loops over the layers
-take the place of ``scan_layers`` and ``lax.map``; remat has no
-counterpart.
+take the place of ``scan_layers`` and ``lax.map``.  No remat: JAX
+checkpoints each encoder layer and, in training, each decoder layer, but
+neither launcher trains Whisper (a token batch has no audio frames), so
+only the gradient tests reach its backward, at reduced widths.
 
 The cache keeps JAX's layout: ``{"self": {"k", "v": (L, B, S, H, Dh)
 bf16, "len": int}, "xkv": (k, v) each (L, B, T_enc, H, Dh), "enc_out":

@@ -162,22 +162,38 @@ def test_meta_counts_equal_real_tensor_counts(arch_id, kind):
     assert meta["flops"] > 0 and meta["ops"] > 0
 
 
-def test_train_flops_equal_a_hand_count_of_the_products():
+@pytest.mark.parametrize("remat", [False, True], ids=["off", "on"])
+def test_train_flops_equal_a_hand_count_of_the_products(remat):
+    """Forward and backward: three a product.  With remat the backward
+    recomputes each layer's forward but for the two products whose
+    outputs JAX's policy saves (``attn_out`` = ... @ wo, ``mlp_out`` =
+    ... @ wd): the checkpoint stops once it has what the backward reads."""
+    from repro_torch.models import transformer
     cfg = get_arch("tinyllama-1.1b").reduced()
     B, T = 8, 64
     N = B * T
     D, H, Hkv, Dh, F, V = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                            cfg.head_dim, cfg.d_ff, cfg.vocab)
+    wo, down = 2 * N * H * Dh * D, 2 * N * F * D
     per_layer = (2 * N * D * H * Dh            # wq
                  + 2 * 2 * N * D * Hkv * Dh    # wk, wv
-                 + 2 * N * H * Dh * D          # wo
+                 + wo
                  + 2 * 2 * N * D * F           # gate, up
-                 + 2 * N * F * D               # down
+                 + down
                  + 2 * 2 * B * H * T * T * Dh)  # scores and p @ v
     forward = cfg.n_layers * per_layer + 2 * N * D * V     # + logits
-    counts = dr.trace_cell(cfg, ShapeCfg("t", T, B, "train"), SMALL)[0]
-    assert counts["flops"] == 3 * forward     # forward, and two a product
-    assert 327_155_712 == 3 * forward
+    transformer.set_remat(remat)
+    try:
+        counts = dr.trace_cell(cfg, ShapeCfg("t", T, B, "train"), SMALL)[0]
+    finally:
+        transformer.set_remat(True)
+    if remat:
+        recomputed = cfg.n_layers * (per_layer - wo - down)
+        assert counts["flops"] == 3 * forward + recomputed
+        assert 394_264_576 == 3 * forward + recomputed
+    else:
+        assert counts["flops"] == 3 * forward
+        assert 327_155_712 == 3 * forward
 
 
 @pytest.mark.parametrize("kind", ["train", "prefill", "decode"])
@@ -225,11 +241,23 @@ def test_run_cell_gives_a_complete_record(kind):
 
 def test_switches_are_restored_after_a_cell():
     from repro_torch.models import layers as L
-    from repro_torch.models import moe
+    from repro_torch.models import moe, transformer
     cfg = get_arch("qwen2-moe-a2.7b").reduced()
     dr.trace_cell(cfg, ShapeCfg("d", 64, 4, "decode"), SMALL, "base")
     assert L._BLOCKWISE_MIN == 2048 and L._WINDOW_SLICE
     assert moe._EINSUM_DECODE
+    # the FSDP-2D train cell runs without remat, as in JAX, and turns it
+    # back on after: its count is the base layout's with remat off
+    dense = get_arch("tinyllama-1.1b").reduced()
+    train = ShapeCfg("t", 64, 8, "train")
+    opt = dr.trace_cell(dense, train, SMALL, "opt")[0]
+    assert transformer._USE_REMAT
+    transformer.set_remat(False)
+    try:
+        plain = dr.trace_cell(dense, train, SMALL, "base")[0]
+    finally:
+        transformer.set_remat(True)
+    assert opt["flops"] == plain["flops"] == 327_155_712
 
 
 def _records():

@@ -453,11 +453,6 @@ NOT_PORTED = {
         "BATCH_AXES": "with_sharding_constraint axes; the layout is an "
                       "argument of sharding.batch_spec",
     },
-    "models/transformer.py": {
-        "REMAT_POLICY": "jax.checkpoint policy; the dry run keeps JAX's "
-                        "remat model for activation bytes",
-        "set_remat": "jax.checkpoint policy",
-    },
     "distributed/sharding.py": {
         "flow_batch_spec": "a shard_map spec; the streaming engine splits "
                            "rows with flow_shards over a FlowMesh",
