@@ -312,10 +312,14 @@ exits nonzero; nothing is caught and passed over):
    ("data",) mesh keeps every value; ``pipeline_forward`` with one stage
    and M = 6 == the stage on each microbatch; the dry run's ``run_cell``
    of ``tinyllama-1.1b`` x ``train_4k`` (base, opt) and
-   ``deepseek-v2-236b`` x ``decode_32k`` on 16x16 (traced on ``meta``), and
-   phase ``train``'s step counted at one chip: its p50 at least the
-   counted ``t_compute`` (p50 over the op-bytes bound printed, not
-   gated).  No hand-written kernel: JAX's multi-device half has none;
+   ``deepseek-v2-236b`` x ``decode_32k`` on 16x16 (traced on ``meta``,
+   once whole and once sharded over a fake group of 256 ranks): each
+   cell's collectives (counts and bytes by kind), ``t_collective_s`` and
+   three-term bottleneck printed, its collective bytes > 0 and no group
+   left behind; phase ``train``'s step counted at one chip: its p50 at
+   least the counted ``t_compute`` (p50 over the op-bytes bound printed,
+   not gated), and sharded over a (1, 1) mesh it emits no collective.
+   No hand-written kernel: JAX's multi-device half has none;
 11. the ``{"kernels": [...]}`` summary, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -2940,9 +2944,13 @@ def dist_phase(card, smi: str, train_p50_s: float) -> None:
     every value; (4) ``pipeline_forward`` with one stage and M = 6 equals
     the stage run on each microbatch; (5) the dry run: ``run_cell`` of
     ``tinyllama-1.1b`` x ``train_4k`` (base and opt) and
-    ``deepseek-v2-236b`` x ``decode_32k`` on 16x16, and the count of phase
-    ``train``'s step (``tinyllama-1.1b`` uncut, 8 x 512 tokens, 2
-    microbatches) at one chip: its p50 must be at least ``t_compute``."""
+    ``deepseek-v2-236b`` x ``decode_32k`` on 16x16, each with its sharded
+    trace over a fake group of 256 ranks: every cell moves collective
+    bytes (its three-term bottleneck printed), and no process group is
+    left behind; and the count of phase ``train``'s step
+    (``tinyllama-1.1b`` uncut, 8 x 512 tokens, 2 microbatches) at one
+    chip: its p50 must be at least ``t_compute``, and the same model and
+    tokens sharded over a (1, 1) mesh emit no collective."""
     import dataclasses
     import shutil
     import tempfile
@@ -2952,6 +2960,7 @@ def dist_phase(card, smi: str, train_p50_s: float) -> None:
     from torch.distributed.tensor import DTensor
     from repro_torch.analysis import roofline as roof
     from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeCfg
     from repro_torch.distributed import group, pspec
     from repro_torch.distributed.compression import (
         compress_grads, compressed_psum,
@@ -2961,7 +2970,9 @@ def dist_phase(card, smi: str, train_p50_s: float) -> None:
         NamedSharding, train_state_shardings,
     )
     from repro_torch.launch import dryrun
-    from repro_torch.launch.mesh import make_device_mesh, make_host_mesh
+    from repro_torch.launch.mesh import (
+        Mesh, make_device_mesh, make_host_mesh,
+    )
     from repro_torch.models import model_zoo
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.elastic import remesh
@@ -3105,17 +3116,38 @@ def dist_phase(card, smi: str, train_p50_s: float) -> None:
                                 (TRAIN_ARCH, "train_4k", "opt"),
                                 (LM_MLA_ARCH, "decode_32k", "base")):
         rec = dryrun.run_cell(arch, shape, False, layout=layout)
-        r = rec["roofline"]
-        cells[f"{arch} x {shape} x {rec['mesh']}"] = {
+        name = f"{arch} x {shape} x {rec['mesh']}"
+        check(not dist.is_initialized(), f"{name}: the sharded trace left "
+              "no process group behind")
+        r, coll = rec["roofline"], rec["collectives"]
+        check(rec["status"] == "ok" and "bytes_by_kind" in coll
+              and sum(coll["bytes_by_kind"].values()) > 0
+              and r["t_collective_s"] is not None,
+              f"{name}: the 256-card cell moves collective bytes "
+              f"({coll})")
+        cells[name] = {
             "status": rec["status"], "t_trace_s": rec["t_trace_s"],
+            "t_sharded_trace_s": rec["t_sharded_trace_s"],
             "counts": rec["counts"], "fits": rec["analytic_memory"]["fits"],
             "total_gb": rec["analytic_memory"]["total_gb"],
+            "collectives": coll,
+            "collective_bytes_per_chip": r["collective_bytes_per_chip"],
             "t_compute_s": r["t_compute_s"], "t_memory_s": r["t_memory_s"],
             "t_memory_op_bytes_s": r["t_memory_hlo_s"],
+            "t_collective_s": r["t_collective_s"],
             "bottleneck": r["bottleneck"],
             "roofline_fraction": r["roofline_fraction"],
             "affine_rel_err": r["affine_rel_err"],
-            "affine_exact": r["affine_exact"]}
+            "affine_exact": r["affine_exact"],
+            "t_cell_s": rec["t_total_s"]}
+    # phase train's model and tokens a step, sharded over a mesh of one
+    # card: no collective dispatched (the counter counts every one)
+    one, t_one = dryrun.trace_sharded(
+        cfg, ShapeCfg("t", TRAIN_SEQ, TRAIN_BATCH, "train"),
+        Mesh(("data", "model"), (1, 1)))
+    check(one.total_bytes == 0 and not any(one.counts.values())
+          and not dist.is_initialized(),
+          f"the one-chip train step launches no collective ({one})")
     zoo = model_zoo.get_model(cfg)
     model = zoo.build(cfg, pspec.abstract_params(defs))
     opt = AdamW(lr=warmup_cosine(TRAIN_LR, 20, TRAIN_STEPS))
@@ -3129,7 +3161,7 @@ def dist_phase(card, smi: str, train_p50_s: float) -> None:
     t_count = time.perf_counter() - t0
     terms = roof.RooflineTerms(
         flops_per_chip=counter.flops, hbm_bytes_per_chip=counter.bytes,
-        collective_bytes_per_chip=None, chips=1,
+        collective_bytes_per_chip=one.total_bytes, chips=1,
         model_flops=6.0 * cfg.param_count() * TRAIN_BATCH * TRAIN_SEQ)
     check(train_p50_s >= terms.t_compute,
           f"phase train's step p50 {train_p50_s} s is at least the counted "
@@ -3138,6 +3170,10 @@ def dist_phase(card, smi: str, train_p50_s: float) -> None:
          train_step={"arch": TRAIN_ARCH, "batch": TRAIN_BATCH,
                      "seq": TRAIN_SEQ, "microbatches": TRAIN_MICRO,
                      "t_trace_s": t_count, "counts": counter.as_dict(),
+                     "t_sharded_trace_s": t_one,
+                     "collectives": {"counts": one.counts,
+                                     "bytes_by_kind": one.bytes_by_kind},
+                     "bottleneck": terms.bottleneck,
                      "t_compute_s": terms.t_compute,
                      "t_memory_op_bytes_s": terms.t_memory,
                      "p50_s": train_p50_s,

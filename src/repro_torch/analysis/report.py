@@ -4,10 +4,12 @@
         [--dir experiments/dryrun_torch]
 
 The tables read the JAX package's records and the port's alike, and
-print the same bytes as JAX's on the same records.  A port record has no
-compile step (its ``t_trace_s`` stands in the "compile s" column) and no
-collectives, and its roofline's collective term is ``None``: such an
-entry prints as ``—``.
+print the same bytes as JAX's on the same records: the collectives
+column, the collective term and a collective-bound cell's hint.  A port
+record has no compile step (its ``t_trace_s`` stands in the "compile s"
+column).  A cell whose sharded trace failed records
+``collectives: {"error": ...}`` and a ``None`` collective term: the
+column says "sharded trace error" and the term prints as ``—``.
 """
 from __future__ import annotations
 
@@ -51,10 +53,12 @@ def dryrun_table(recs: dict) -> str:
                 lines.append(f"| {a} | {s} | skip | skip | — | — | {reason} |")
                 continue
             mem = r1["analytic_memory"]
-            if "collectives" in r1:
+            if "counts" in r1.get("collectives", {}):
                 cc = r1["collectives"]["counts"]
                 coll = " ".join(f"{k.split('-')[-1][:4]}:{v}"
                                 for k, v in cc.items() if v)
+            elif "collectives" in r1:
+                coll = "sharded trace error"
             else:
                 coll = "—"
             t_s = r1.get("t_compile_s", r1.get("t_trace_s"))

@@ -1,20 +1,21 @@
-"""Roofline terms from the port's own op counts (port of
+"""Roofline terms from the port's own op and collective counts (port of
 ``repro.analysis.roofline``).
 
 Hardware model: one NVIDIA H100 SXM (NVIDIA's data sheet, dense rates,
-at its full 700 W power limit): 989 TFLOP/s bf16, 3.35 TB/s HBM3.
+at its full 700 W power limit): 989 TFLOP/s bf16, 3.35 TB/s HBM3, and
+NVLink 4 at 900 GB/s bidirectional, 450 GB/s a direction (``LINK_BW``).
 
 Terms per (arch x shape x mesh):
-    compute = FLOPs / (chips * peak)
-    memory  = bytes / (chips * hbm_bw)
+    compute    = FLOPs / (chips * peak)
+    memory     = bytes / (chips * hbm_bw)
+    collective = collective bytes per chip / link_bw
 
 The JAX package reads its counts from XLA (``cost_analysis`` of the
 partitioned program, collectives parsed from its HLO text).  The port
-has neither: it runs no partitioned program, its models run whole on one
-card, and it never has HLO.  What it can count exactly is its own eager
-program: :class:`OpCounter`, a ``TorchDispatchMode``, sees every aten op
-the step dispatches (forward, autograd's backward and the optimizer) and
-counts
+has no HLO.  It counts its own eager program instead.
+
+:class:`OpCounter`, a ``TorchDispatchMode``, sees every aten op the step
+dispatches (forward, autograd's backward and the optimizer) and counts
 
   * FLOPs with ``torch.utils.flop_counter``'s formulas (matrix products,
     convolutions and attention; elementwise ops count none there, where
@@ -37,21 +38,35 @@ the same counts (the tests hold that on reduced configs).  A host read
 (``.item()``) fails on ``meta`` and fails the count.  A kernel launched
 through ``ctypes`` on the card is invisible to a dispatch mode, so counts
 are taken on ``meta`` only, where every op is an aten op (RWKV6 and
-Zamba2 count ``chunk_scan``'s plain form).
+Zamba2 count ``chunk_scan``'s plain form).  The global counts over
+``chips`` are an ideal partition: JAX's SPMD counts include replicated
+work, the port's do not.
 
-The global counts over ``chips`` are an ideal partition: JAX's SPMD
-counts include replicated work, the port's do not.  No source of
-collective bytes exists in the port (``parse_collectives`` and
-``_shape_bytes`` read HLO text and are not ported), so the collective
-term is ``None`` and the bottleneck is taken over compute and memory;
-JAX's HLO counts stay the reference for that term.  The costs are affine
-in depth (homogeneous layer stacks), so, as in JAX, two small depth
-variants give a line; the port also counts full depth and checks the
-line against it.
+:class:`CollectiveCounter` counts the collective term, the counterpart
+of ``parse_collectives``.  The dry run runs the step a second time as a
+sharded program (``launch.dryrun.trace_sharded``): every tensor a
+DTensor with ``meta`` local shards over a fake process group of the
+mesh's size.  DTensor's propagation emits c10d functional collectives
+on the local shards, and the counter, entered around the step, sees each
+one and maps it to JAX's kinds (``all_reduce`` -> all-reduce,
+``all_gather_into_tensor`` -> all-gather, ``reduce_scatter_tensor`` ->
+reduce-scatter, ``all_to_all_single`` and DTensor's ``shard_dim_alltoall``
+-> all-to-all).  Its bytes are each collective's result shape on one
+chip, JAX's accounting.  A collective op it does not know raises.
+
+``LINK_BW`` is one NVLink direction, the rate within a node of 8 cards.
+A 256-card mesh spans 32 such nodes, and across nodes a card's network
+link is slower, so the term is a lower bound on the collective time, a
+model as JAX's one-link ICI term is.
+
+The costs are affine in depth (homogeneous layer stacks), so, as in JAX,
+two small depth variants give a line; the port also counts full depth
+and checks the line against it.
 """
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Any
 
 import torch
@@ -62,6 +77,25 @@ from torch.utils.flop_counter import flop_registry
 # --- one NVIDIA H100 SXM, 700 W (data sheet, dense) --------------------------
 PEAK_FLOPS = 989e12          # bf16 FLOP/s per card
 HBM_BW = 3.35e12             # bytes/s per card
+LINK_BW = 450e9              # bytes/s per card, one NVLink 4 direction
+
+COLLECTIVES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+               "collective-permute")
+# c10d functional ops (and DTensor's all-to-all) -> JAX's kind names
+_COLLECTIVE_KINDS = {
+    "all_reduce": "all-reduce", "all_reduce_": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_out": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all", "shard_dim_alltoall": "all-to-all",
+}
+# ops of those namespaces that move no data
+_NOT_COLLECTIVES = {"wait_tensor", "_wrap_tensor_autograd"}
+_COLLECTIVE_NAMESPACES = ("_c10d_functional", "_c10d_functional_autograd",
+                          "c10d", "_dtensor")
 
 _aten = torch.ops.aten
 # ops whose schema declares no alias but which return a view or the input
@@ -124,10 +158,57 @@ class OpCounter(TorchDispatchMode):
 
 
 @dataclasses.dataclass
+class CollectiveStats:
+    counts: dict[str, int]
+    bytes_by_kind: dict[str, int]
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(self.bytes_by_kind.values())
+
+
+class CollectiveCounter(TorchDispatchMode):
+    """Counts the collectives a sharded step emits, per chip, by JAX's
+    kinds (see the module docstring).  DTensor ops pass through untouched
+    (``NotImplemented`` lets DTensor run and desugar into collectives on
+    the local shards, which then reach this mode)."""
+
+    def __init__(self):
+        super().__init__()
+        self.counts = {k: 0 for k in COLLECTIVES}
+        self.bytes_by_kind = {k: 0 for k in COLLECTIVES}
+        self.ops: list[tuple[str, tuple[int, ...], int]] = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        mod = sys.modules.get("torch.distributed.tensor")
+        if mod is not None and any(issubclass(t, mod.DTensor)
+                                   for t in types):
+            return NotImplemented
+        out = func(*args, **(kwargs or {}))
+        if func.namespace in _COLLECTIVE_NAMESPACES:
+            name = func.overloadpacket.__name__
+            if name not in _NOT_COLLECTIVES:
+                kind = _COLLECTIVE_KINDS.get(name)
+                if kind is None:
+                    raise NotImplementedError(
+                        f"collective {func} is not counted")
+                outs = [t for t in tree_flatten(out)[0]
+                        if isinstance(t, torch.Tensor)]
+                nbytes = sum(_nbytes(t) for t in outs)
+                self.counts[kind] += 1
+                self.bytes_by_kind[kind] += nbytes
+                self.ops.append((kind, tuple(outs[0].shape), nbytes))
+        return out
+
+    def stats(self) -> CollectiveStats:
+        return CollectiveStats(dict(self.counts), dict(self.bytes_by_kind))
+
+
+@dataclasses.dataclass
 class RooflineTerms:
     flops_per_chip: float
     hbm_bytes_per_chip: float        # op bytes (unfused bound)
-    collective_bytes_per_chip: float | None
+    collective_bytes_per_chip: float | None   # None: not counted
     chips: int
     model_flops: float               # 6*N*D (active N for MoE), global
     hbm_bytes_model: float = 0.0     # fusion-aware analytic estimate
@@ -151,12 +232,20 @@ class RooflineTerms:
 
     @property
     def t_collective(self) -> float | None:
-        """``None``: the port has no source of collective bytes."""
-        return None
+        """Collective bytes per chip over one link; ``None`` when the
+        sharded trace could not count them."""
+        if self.collective_bytes_per_chip is None:
+            return None
+        return self.collective_bytes_per_chip / LINK_BW
+
+    def _terms(self) -> dict[str, float]:
+        terms = {"compute": self.t_compute, "memory": self.t_memory,
+                 "collective": self.t_collective}
+        return {k: v for k, v in terms.items() if v is not None}
 
     @property
     def bottleneck(self) -> str:
-        terms = {"compute": self.t_compute, "memory": self.t_memory}
+        terms = self._terms()
         return max(terms, key=terms.get)
 
     @property
@@ -169,7 +258,7 @@ class RooflineTerms:
     def roofline_fraction(self) -> float:
         """Useful-FLOP throughput fraction at the bound set by the
         dominant term: (model_flops/chips/peak) / max(terms)."""
-        t_bound = max(self.t_compute, self.t_memory)
+        t_bound = max(self._terms().values())
         t_useful = self.model_flops / self.chips / PEAK_FLOPS
         return t_useful / t_bound if t_bound else 0.0
 

@@ -20,7 +20,9 @@ port has no such global and takes the layout as an argument (``"tp"``:
 ("pod", "data"); ``"fsdp2d"``: ("pod", "data", "model")).
 
 :class:`NamedSharding` pairs a mesh and a spec and gives the spec's
-DTensor placements.  The streaming scheduler's flow batches split into
+DTensor placements; :func:`place_abstract` places a tree of abstract
+tensors as DTensors with ``meta`` local shards (the dry run's sharded
+trace).  The streaming scheduler's flow batches split into
 one contiguous shard a device, in mesh order (:func:`flow_shards`).
 """
 from __future__ import annotations
@@ -210,3 +212,50 @@ def cache_shardings(cfg: ArchConfig, mesh, cache_abs, opt: bool = True,
                     layout: str = "tp"):
     return tree_shardings(mesh, cache_abs,
                           lambda s: cache_spec(mesh, s, cfg, opt, layout))
+
+
+def unit_dims_whole(placements, shape) -> tuple:
+    """``placements`` with a split of a dim of extent 1 replaced by
+    ``Replicate()``.  Such a split exists only on a mesh axis of one
+    chip (the rules' fallback keeps the dim whole on any larger axis),
+    where the two hold the same data; DTensor's view rules would drop
+    the unit dim and refuse the split."""
+    from torch.distributed.tensor import Replicate, Shard
+    return tuple(Replicate() if isinstance(p, Shard) and shape[p.dim] == 1
+                 else p for p in placements)
+
+
+def place_abstract(tree, shardings):
+    """A tree of tensors and a tree of :class:`NamedSharding` on a
+    runtime mesh -> DTensors of the same global shapes and strides.  A
+    leaf on ``meta`` gets a ``meta`` local shard of one shard's shape:
+    nothing is allocated (the dry run's sharded trace).  A leaf with
+    values gets this rank's shard of them (``distribute_tensor``; the
+    tests run a world of one rank this way).  Leaves that are not
+    tensors (the port's host cache lengths) pass through.  The specs
+    come from the rules (``train_state_shardings``, ``batch_shardings``,
+    ``cache_shardings``), whose fallback replicates a dim that does not
+    divide its axes; a sharded dim that does not divide raises."""
+    import torch
+    from torch.distributed.tensor import DTensor, Shard, distribute_tensor
+
+    def one(t, ns):
+        if not isinstance(t, torch.Tensor):
+            return t
+        placements = unit_dims_whole(ns.placements(), t.shape)
+        local = list(t.shape)
+        for mesh_dim, p in enumerate(placements):
+            if isinstance(p, Shard):
+                n = ns.mesh.size(mesh_dim)
+                if local[p.dim] % n:
+                    raise ValueError(
+                        f"spec {ns.spec} of shape {tuple(t.shape)}: dim "
+                        f"{p.dim} does not divide {n} ways")
+                local[p.dim] //= n
+        if t.device.type != "meta":
+            return distribute_tensor(t, ns.mesh, placements)
+        return DTensor.from_local(
+            torch.empty(local, dtype=t.dtype, device="meta"), ns.mesh,
+            placements, run_check=False, shape=t.shape, stride=t.stride())
+
+    return pspec.map_structure(one, tree, shardings)

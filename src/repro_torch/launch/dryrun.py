@@ -11,8 +11,9 @@ Records land in ``experiments/dryrun_torch/<arch>__<shape>__<mesh>.json``
 (never in the JAX package's ``experiments/dryrun/``).
 
 JAX lowers and compiles each cell for 256 (or 512) fake devices and reads
-XLA's memory and cost analyses.  The port runs no partitioned program, so
-a record holds, per cell, what the port can say exactly:
+XLA's memory and cost analyses and the collectives of its partitioned
+HLO.  The port counts its eager program on ``meta`` instead, once whole
+and once sharded; a record holds, per cell:
 
 * ``analytic_memory``: JAX's budget on the resolved specs, its bytes
   equal to JAX's, ``fits`` judged against the H100's memory;
@@ -30,10 +31,22 @@ a record holds, per cell, what the port can say exactly:
   ``t_trace_s`` in place of the lower and compile times.  A serving step
   is counted on its second call: the first casts the bf16 weight copies,
   as a server's first step does;
+* ``collectives`` (every ``ok`` cell, both meshes, as in JAX):
+  ``{counts, bytes_by_kind}`` per chip by JAX's five kinds, from
+  :func:`trace_sharded`: the step run as a sharded program over a fake
+  process group of the mesh's size (``group.fake_group``), parameters,
+  optimizer state, batch and cache DTensors with ``meta`` local shards
+  placed by the rules' specs, the models' ``layers.shard`` constraints
+  at JAX's sites, and every collective DTensor emits counted by
+  ``analysis.roofline.CollectiveCounter``; ``t_sharded_trace_s`` its
+  seconds.  A cell the sharded trace cannot run records
+  ``collectives: {"error": ...}`` naming the cell and the op;
 * ``roofline`` (single-pod, as in JAX): two depth variants give the
-  affine line, checked against the full-depth counts
-  (``affine_rel_err``); per-chip terms are the global counts over the
-  chips (an ideal partition), the collective term ``None``.
+  affine line of the op counts and of the collective bytes, checked
+  against the full-depth counts (``affine_rel_err``); the compute and
+  memory terms are the global counts over the chips (an ideal
+  partition), the collective term the sharded trace's bytes per chip
+  over ``LINK_BW``; the bottleneck is the largest of the three.
 
 A host read in a step fails on ``meta`` and the cell's record says
 ``status: error`` with the reason.
@@ -59,6 +72,7 @@ from repro_torch.configs import ARCHS, get_arch
 from repro_torch.configs.base import ArchConfig, SHAPES, ShapeCfg, shape_supported
 from repro_torch.distributed import pspec as pspec_lib
 from repro_torch.device import on_meta
+from repro_torch.distributed import group
 from repro_torch.distributed import sharding
 from repro_torch.launch.mesh import Mesh, make_production_mesh, mesh_shape_dict
 from repro_torch.models import layers as L
@@ -101,6 +115,7 @@ def _layout(cfg: ArchConfig, shape: ShapeCfg, layout: str):
 
 
 def _set_switches(layout: str, batch_layout: str) -> None:
+    L.set_layout(batch_layout)
     if layout == "base":
         # paper-faithful baseline: naive (probs-materialising) attention,
         # scatter MoE dispatch, full-cache window masking
@@ -114,6 +129,7 @@ def _set_switches(layout: str, batch_layout: str) -> None:
 
 
 def _restore_switches() -> None:
+    L.set_layout("tp")
     L.set_blockwise_min(2048)
     L.set_window_slice(True)
     moe_lib.set_einsum_decode(True)
@@ -129,7 +145,8 @@ def _cache(cfg: ArchConfig, shape: ShapeCfg, mesh: Mesh, layout: str):
 
 
 def build_cell(cfg: ArchConfig, shape: ShapeCfg, mesh: Mesh,
-               layout: str = "base", device: str = "meta") -> Cell:
+               layout: str = "base", device: str = "meta",
+               dmesh=None) -> Cell:
     """layout:
       base -- paper-faithful: TP+FSDP sharding, naive attention, scatter
               MoE dispatch, full-cache window masking
@@ -142,7 +159,13 @@ def build_cell(cfg: ArchConfig, shape: ShapeCfg, mesh: Mesh,
     (:func:`trace_cell` does, in a ``finally``).  The port's models hold
     f32 parameters; serving reads their cached bf16 copies.  ``device``
     ``"cpu"`` makes the same step on real tensors (seeded parameters,
-    ``concrete_batch``), which the tests count beside ``meta``."""
+    ``concrete_batch``), which the tests count beside ``meta``.  With
+    ``dmesh``, a runtime mesh of ``mesh``'s axes (``group.fake_group``),
+    the step is the sharded program: parameters (so the optimizer
+    state), batch and cache are DTensors placed by the rules' specs
+    (``sharding.place_abstract``), on ``meta`` or, with ``device``
+    ``"cpu"`` on a mesh of one rank, on the same values as the plain
+    step's."""
     from repro_torch.serve.serve_step import make_decode_step, make_prefill_step
     from repro_torch.train.optimizer import AdamW
     from repro_torch.train.train_step import make_train_step
@@ -164,11 +187,28 @@ def build_cell(cfg: ArchConfig, shape: ShapeCfg, mesh: Mesh,
         mesh, tuple(t.shape), blayout))
     if device == "meta":
         batch = batch_abs
-        build = lambda: zoo.build(cfg, pspec_lib.abstract_params(defs))
+        params = lambda: pspec_lib.abstract_params(defs)
     else:
         batch = model_zoo.concrete_batch(cfg, shape, device=device)
-        build = lambda: zoo.build(cfg, pspec_lib.init_params(
-            defs, torch.Generator(device).manual_seed(0), device))
+        params = lambda: pspec_lib.init_params(
+            defs, torch.Generator(device).manual_seed(0), device)
+    build = lambda: zoo.build(cfg, params())
+    place = lambda tree, spec_fn: tree
+    if dmesh is not None:
+        place = lambda tree, spec_fn: sharding.place_abstract(
+            tree, pspec_lib.map_structure(
+                lambda x: sharding.NamedSharding(dmesh, spec_fn(x))
+                if isinstance(x, torch.Tensor) else None, tree))
+        drules = rules
+        if blayout == "fsdp2d":        # the flattened mesh (_fake_mesh)
+            drules = {k: "data" if v == ("data", "model") else v
+                      for k, v in rules.items()}
+        named = sharding.train_state_shardings(cfg, dmesh, defs,
+                                               drules).params
+        batch = place(batch, lambda x: sharding.batch_spec(
+            dmesh, tuple(x.shape), blayout))
+        build = lambda: zoo.build(cfg, sharding.place_abstract(params(),
+                                                               named))
 
     if shape.kind == "train":
         opt = AdamW(lr=1e-3)
@@ -191,7 +231,9 @@ def build_cell(cfg: ArchConfig, shape: ShapeCfg, mesh: Mesh,
         with on_meta() if device == "meta" else contextlib.nullcontext():
             c = zoo.init_cache(cfg, shape.global_batch, shape.seq_len,
                                device=device)
-        return model_zoo.host_lengths(c, length)
+        return place(model_zoo.host_lengths(c, length),
+                     lambda x: sharding.cache_spec(
+                         dmesh, tuple(x.shape), cfg, opt=layout == "opt"))
 
     if shape.kind == "prefill":
         return Cell(
@@ -233,6 +275,66 @@ def trace_cell(cfg: ArchConfig, shape: ShapeCfg, mesh: Mesh,
     return counter.as_dict(), t_trace, cell, cell.out_bytes(out)
 
 
+def _fake_mesh(cfg: ArchConfig, shape: ShapeCfg, mesh: Mesh,
+               layout: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """(shape, axis names) of the sharded trace's mesh: ``mesh``'s, but
+    under FSDP-2D, where every spec takes "data" and "model" together
+    (the parameters' "embed", the batch) and no constraint keeps a lone
+    "model", the two are one "data" axis of their product.  The
+    collectives are the same; DTensor in torch 2.11 has no strategy for
+    a dim split over two mesh axes."""
+    if _layout(cfg, shape, layout)[2] != "fsdp2d":
+        return mesh.shape, mesh.axis_names
+    sizes = mesh_shape_dict(mesh)
+    names = tuple(a for a in mesh.axis_names if a != "model")
+    return (tuple(sizes[a] * (sizes["model"] if a == "data" else 1)
+                  for a in names), names)
+
+
+def trace_sharded(cfg: ArchConfig, shape: ShapeCfg, mesh: Mesh,
+                  layout: str = "base") -> tuple[roof.CollectiveStats, float]:
+    """The cell's step run once as the sharded program over a fake group
+    of ``mesh``'s size (the counterpart of JAX's partitioned compile):
+    parameters, optimizer state, batch and cache DTensors on ``meta``,
+    the collectives DTensor emits counted per chip by kind.  Returns
+    (the counts, seconds); the group is destroyed and the model switches
+    restored whatever happens.  An op DTensor has no sharding strategy
+    for raises, naming the op."""
+    t0 = time.perf_counter()
+    with group.fake_group(*_fake_mesh(cfg, shape, mesh, layout)) as dmesh:
+        try:
+            cell = build_cell(cfg, shape, mesh, layout, dmesh=dmesh)
+            model = cell.build()
+            if shape.kind != "train":
+                cell.step(*cell.inputs(model))  # the bf16 copies, uncounted
+            args = cell.inputs(model)
+            with roof.CollectiveCounter() as counter:
+                cell.step(*args)
+        finally:
+            _restore_switches()
+    return counter.stats(), time.perf_counter() - t0
+
+
+def collectives_entry(cfg: ArchConfig, shape: ShapeCfg, mesh: Mesh,
+                      layout: str, cell: str) -> tuple[dict, float | None]:
+    """A record's ``collectives``: ``{"counts", "bytes_by_kind"}`` of
+    :func:`trace_sharded`, or ``{"error": ...}`` naming the cell and the
+    reason when the sharded trace cannot run it (printed to stderr too:
+    never a silent zero); and the trace's seconds (``None`` on error)."""
+    try:
+        stats, t = trace_sharded(cfg, shape, mesh, layout)
+    except Exception as e:   # recorded: the cell's term is the result
+        msg = f"{cell}: {type(e).__name__}: {e}"
+        print("sharded trace failed:", msg, file=sys.stderr)
+        return {"error": msg}, None
+    return {"counts": stats.counts, "bytes_by_kind": stats.bytes_by_kind}, t
+
+
+def _collective_bytes(entry: dict) -> int | None:
+    return (sum(entry["bytes_by_kind"].values())
+            if "bytes_by_kind" in entry else None)
+
+
 # ---------------------------------------------------------------------------
 # depth variants for affine cost extrapolation
 # ---------------------------------------------------------------------------
@@ -270,22 +372,41 @@ def _resident_and_cache(cfg: ArchConfig, shape: ShapeCfg, mesh: Mesh,
 
 def roofline_cell(cfg: ArchConfig, shape: ShapeCfg, mesh: Mesh,
                   layout: str = "base", full: dict | None = None) -> dict:
-    """Two-term roofline from two small-depth counts, extrapolated
-    affinely to full depth.  ``full``, the full-depth counts, is checked
-    against the line: ``affine_rel_err`` per count, ``affine_exact`` when
-    every one is within 1e-9."""
+    """Three-term roofline from two small-depth counts, extrapolated
+    affinely to full depth: the op counts of :func:`trace_cell` and the
+    collective bytes of :func:`trace_sharded` at each depth.  ``full``,
+    the full-depth counts (with ``collective_bytes`` when they were
+    counted), is checked against the line: ``affine_rel_err`` per count,
+    ``affine_exact`` when every one is within 1e-9.  A sharded trace that
+    fails leaves the collective term ``None`` and its reason in
+    ``collective_error``."""
     variants, n_full = depth_variants(cfg)
     samples = []
+    errors = []
     for vcfg, n in variants:
         counts, t_trace, _, _ = trace_cell(vcfg, shape, mesh, layout)
-        samples.append({"n": n, **counts, "t_trace_s": t_trace})
+        sample = {"n": n, **counts, "t_trace_s": t_trace}
+        entry, t_sh = collectives_entry(
+            vcfg, shape, mesh, layout,
+            f"{cfg.arch_id} x {shape.name} at depth {n}")
+        if "error" in entry:
+            errors.append(entry["error"])
+        else:
+            sample.update(collective_bytes=_collective_bytes(entry),
+                          collective_counts=entry["counts"],
+                          t_sharded_trace_s=t_sh)
+        samples.append(sample)
     (s1, s2) = samples
     ex = lambda k: roof.affine_extrapolate(s1[k], s2[k], s1["n"], s2["n"],
                                            n_full)
+    keys = ("flops", "bytes", "ops")
+    coll_keys = () if errors else ("collective_bytes",)
     out: dict = {"samples": samples, "n_full": n_full}
+    if errors:
+        out["collective_error"] = errors[0]
     if full is not None:
         rel = {k: abs(ex(k) - full[k]) / max(abs(full[k]), 1)
-               for k in ("flops", "bytes", "ops")}
+               for k in keys + tuple(k for k in coll_keys if k in full)}
         out.update(full_depth=full, affine_rel_err=rel,
                    affine_exact=all(v <= 1e-9 for v in rel.values()))
     chips = mesh.size
@@ -293,7 +414,8 @@ def roofline_cell(cfg: ArchConfig, shape: ShapeCfg, mesh: Mesh,
     terms = roof.RooflineTerms(
         flops_per_chip=ex("flops") / chips,
         hbm_bytes_per_chip=ex("bytes") / chips,
-        collective_bytes_per_chip=None,
+        collective_bytes_per_chip=(ex("collective_bytes") if coll_keys
+                                   else None),
         chips=chips,
         model_flops=roof.model_flops_for(cfg, shape),
         hbm_bytes_model=roof.analytic_hbm_bytes(
@@ -349,16 +471,24 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool,
                 "note": "one step of the eager program, full depth; "
                         "global, not per chip"},
     )
+    full = dict(counts)
+    coll, t_sh = collectives_entry(
+        cfg, shape, mesh, layout, f"{arch_id} x {shape_name} x {name}")
+    record.update(collectives=coll, t_sharded_trace_s=t_sh)
+    if "error" not in coll:
+        full["collective_bytes"] = _collective_bytes(coll)
     print(f"[{arch_id} x {shape_name} x {name}] traced in {t_trace:.1f}s; "
           f"analytic mem {mem.total_bytes / 1e9:.2f} GB/chip "
-          f"(fits={mem.fits}); counts {counts}")
+          f"(fits={mem.fits}); counts {counts}; collectives "
+          f"{record['collectives']}")
     if with_roofline and not multi_pod:
         record["roofline"] = roofline_cell(cfg, shape, mesh, layout,
-                                           full=counts)
+                                           full=full)
         r = record["roofline"]
         print(f"  roofline: compute {r['t_compute_s']:.4f}s "
               f"memory {r['t_memory_s']:.4f}s (op-bytes bound "
-              f"{r['t_memory_hlo_s']:.4f}s) -> {r['bottleneck']}-bound; "
+              f"{r['t_memory_hlo_s']:.4f}s) collective "
+              f"{r['t_collective_s']}s -> {r['bottleneck']}-bound; "
               f"useful-FLOP frac {r['useful_flops_fraction']:.3f}; "
               f"roofline frac {r['roofline_fraction']:.4f}; "
               f"affine exact {r['affine_exact']}")

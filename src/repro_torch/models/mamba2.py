@@ -124,6 +124,52 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return L.silu(out + b[None, None]), new_tail
 
 
+def _ssd(xs, Bs, Cs, dt, a, d_skip, s0, hd: int, chunk: int,
+         impl: str | None):
+    """The heads' scan of one mixer: xs (B, T, H*hd), Bs and Cs (B, T, N),
+    dt and the decay a (B, T, H), the skip d_skip (H,) and the state
+    (B*H, N, hd) or None; returns (o (B, T, H*hd) f32, the new state).
+    On DTensors it runs shard by shard (``layers.per_shard``), as
+    RWKV6's ``_heads_scan`` does and for the same reason."""
+    dims = [(0, 2), (0, None), (0, None), (0, 2), (0, 2), (None, 0)]
+    if s0 is None:
+        return L.per_shard(
+            lambda *t: _ssd_local(*t, None, hd, chunk, impl)[0],
+            (xs, Bs, Cs, dt, a, d_skip), dims, [(0, 2)], dt.shape[-1]), None
+    return L.per_shard(
+        lambda *t: _ssd_local(*t, hd, chunk, impl),
+        (xs, Bs, Cs, dt, a, d_skip, s0), dims + [(0, None)],
+        [(0, 2), (0, None)], dt.shape[-1], whole_heads=True)
+
+
+def _ssd_local(xs, Bs, Cs, dt, a, d_skip, s0, hd: int, chunk: int,
+               impl: str | None):
+    """:func:`_ssd` on one chip's tensors."""
+    B, T, H = dt.shape
+    N = Bs.shape[-1]
+    # the chunk-scan form, head-major per sequence (B*H, T, .): v = x
+    # dt per head, q = C and k = B shared by every head, the head's
+    # decay broadcast over the N state channels; broadcast, then made
+    # contiguous (the kernel takes contiguous f32)
+    v = (xs.reshape(B, T, H, hd).float() * dt[..., None]).transpose(
+        1, 2).reshape(B * H, T, hd)
+    q = Cs.float()[:, None].expand(B, H, T, N).reshape(B * H, T, N)
+    k = Bs.float()[:, None].expand(B, H, T, N).reshape(B * H, T, N)
+    # parity trap, the decay: at init most per-step decays lie below
+    # the 0.495 for which the chunked form's +-45 clip is exact, so it
+    # departs from the naive recurrence, JAX's chunked form as much
+    # as the port's (ROADMAP C); the chunked form is the reference
+    decay = a.transpose(1, 2)[..., None].expand(B, H, T, N).reshape(
+        B * H, T, N)
+    o, s_new = ops.chunk_scan(q, k, v, decay, bonus=None, state=s0,
+                              chunk=chunk, impl=impl)
+    o = o.reshape(B, H, T, hd).transpose(1, 2)
+    # the skip term in f32, after the scan
+    o = o + d_skip.float()[None, None, :, None] * xs.reshape(
+        B, T, H, hd).float()
+    return o.reshape(B, T, H * hd), s_new
+
+
 class MambaLayers(L.ParamGroup):
     """The stacked ``mamba_layers.*`` parameters and the Mamba2 mixer."""
 
@@ -148,28 +194,10 @@ class MambaLayers(L.ParamGroup):
         dt = _softplus(dt.float() + self.dt_bias[i].float()[None, None])
         a = torch.exp(-dt * torch.exp(self.a_log[i].float())[None, None])
 
-        # the chunk-scan form, head-major per sequence (B*H, T, .): v = x
-        # dt per head, q = C and k = B shared by every head, the head's
-        # decay broadcast over the N state channels; broadcast, then made
-        # contiguous (the kernel takes contiguous f32)
-        v = (xs.reshape(B, T, H, hd).float() * dt[..., None]).transpose(
-            1, 2).reshape(B * H, T, hd)
-        q = Cs.float()[:, None].expand(B, H, T, N).reshape(B * H, T, N)
-        k = Bs.float()[:, None].expand(B, H, T, N).reshape(B * H, T, N)
-        # parity trap, the decay: at init most per-step decays lie below
-        # the 0.495 for which the chunked form's +-45 clip is exact, so it
-        # departs from the naive recurrence, JAX's chunked form as much
-        # as the port's (ROADMAP C); the chunked form is the reference
-        decay = a.transpose(1, 2)[..., None].expand(B, H, T, N).reshape(
-            B * H, T, N)
         s0 = None if state is None else state["S"]
-        o, s_new = ops.chunk_scan(q, k, v, decay, bonus=None, state=s0,
-                                  chunk=s.chunk, impl=impl)
-        o = o.reshape(B, H, T, hd).transpose(1, 2)
-        # the skip term in f32, after the scan
-        o = o + self.d_skip[i].float()[None, None, :, None] * xs.reshape(
-            B, T, H, hd).float()
-        o = o.reshape(B, T, d_inner).to(COMPUTE_DTYPE)
+        o, s_new = _ssd(xs, Bs, Cs, dt, a, self.d_skip[i], s0, hd, s.chunk,
+                        impl)
+        o = o.to(COMPUTE_DTYPE)
         o = L.rmsnorm(self.out_norm[i], o * L.silu(z), cfg.norm_eps)
         out = (o @ w("w_out")).to(x.dtype)
         new_state = None
@@ -236,7 +264,8 @@ class Zamba2(L.LMModule):
         if mode not in MODES:
             raise ValueError(f"mode {mode!r}; options: {MODES}")
         cfg = self.cfg
-        x = L.embed(self.embed, batch["tokens"])
+        x = L.shard(L.embed(self.embed, batch["tokens"]), L.BATCH_AXES, None,
+                    None)
         every = cfg.shared_attn_every or cfg.n_layers
         m = None if cache is None else cache["mamba"]
         kv = None if cache is None else cache["attn"]

@@ -31,6 +31,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig, MLACfg
 from repro_torch.distributed.pspec import ParamDef
+from repro_torch.models import layers as L
 from repro_torch.models.layers import (
     COMPUTE_DTYPE, rmsnorm, rmsnorm_def, rope,
 )
@@ -63,13 +64,13 @@ def _ein(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``jnp.einsum`` on two operands: a bf16 cache read against f32
     operands promotes, as in JAX; bf16 operands give a bf16 result."""
     dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.einsum(spec, a.to(dt), b.to(dt))
+    return L.einsum(spec, a.to(dt), b.to(dt))
 
 
 def _scores(spec: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """A score product with JAX's ``preferred_element_type=f32``: both
     operands upcast first, so the sum is not rounded to bf16."""
-    return torch.einsum(spec, a.float(), b.float())
+    return L.einsum(spec, a.float(), b.float())
 
 
 def _w(p: dict, name: str) -> torch.Tensor:
@@ -89,7 +90,33 @@ def _project_latents(p: dict, x: torch.Tensor, m: MLACfg, cfg: ArchConfig):
 
 def _softmax(lg: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     lg = torch.where(mask[None, None], lg, _MASKED)
+    dt = L._dtensor_type()
+    if dt is not None and isinstance(lg, dt):
+        # over cache positions split on a mesh axis: the max and the sum
+        # reduced across it, as XLA partitions a softmax (DTensor's own
+        # gathers the positions whole)
+        e = torch.exp(lg - L.summed(lg.amax(dim=-1, keepdim=True)))
+        return (e / L.summed(e.sum(dim=-1, keepdim=True))).to(COMPUTE_DTYPE)
     return torch.softmax(lg, dim=-1).to(COMPUTE_DTYPE)
+
+
+def _direct(q_nope, q_rope, k_nope, v, k_rope, scale: float):
+    """The direct form's causal attention over the projected heads, on
+    DTensors run on every (batch, heads) block on its own
+    (``layers.per_shard``; the shared rope key has no heads dim), as
+    ``layers.attend`` runs: op by op, DTensor's softmax backward and
+    score products would gather or refuse head splits."""
+    def core(q_nope, q_rope, k_nope, v, k_rope):
+        T = q_nope.shape[1]
+        lg = (_scores("bthd,bshd->bhts", q_nope, k_nope)
+              + _scores("bthd,bsd->bhts", q_rope, k_rope[:, :, 0])) * scale
+        mask = torch.tril(torch.ones((T, T), dtype=torch.bool,
+                                     device=q_nope.device))
+        return _ein("bhts,bshd->bthd", _softmax(lg, mask), v)
+
+    return L.per_shard(core, (q_nope, q_rope, k_nope, v, k_rope),
+                       [(0, 2)] * 4 + [(0, None)], [(0, 2)],
+                       q_nope.shape[2])
 
 
 def mla_attention(
@@ -111,11 +138,7 @@ def mla_attention(
         k_rope = rope(k_rope, pos, cfg.rope_theta)
         k_nope = _ein("bsl,lhd->bshd", c_kv, _w(p, "wk_b"))
         v = _ein("bsl,lhd->bshd", c_kv, _w(p, "wv_b"))
-        lg = (_scores("bthd,bshd->bhts", q_nope, k_nope)
-              + _scores("bthd,bsd->bhts", q_rope, k_rope[:, :, 0])) * scale
-        mask = torch.tril(torch.ones((T, T), dtype=torch.bool,
-                                     device=x.device))
-        out = _ein("bhts,bshd->bthd", _softmax(lg, mask), v)
+        out = _direct(q_nope, q_rope, k_nope, v, k_rope, scale)
         new_cache = None
     else:
         cur = int(cache["len"])
@@ -127,8 +150,8 @@ def mla_attention(
         pos = (cur + torch.arange(T, device=x.device))[None].expand(B, T)
         q_rope = rope(q_rope, pos, cfg.rope_theta)
         k_rope = rope(k_rope, pos, cfg.rope_theta)
-        ckv[:, cur:cur + T] = c_kv.to(ckv.dtype)
-        ckr[:, cur:cur + T] = k_rope.to(ckr.dtype)
+        L.write_positions(ckv, c_kv, cur)
+        L.write_positions(ckr, k_rope, cur)
         rope_lg = _scores("bthd,bsd->bhts", q_rope, ckr[:, :, 0])
         if absorbed:
             # fold W_UK into q: q_lat (B, T, H, R); attention in latent space
@@ -140,7 +163,8 @@ def mla_attention(
                   + rope_lg) * scale
         qpos = cur + torch.arange(T, device=x.device)[:, None]
         kpos = torch.arange(S, device=x.device)[None, :]
-        pr = _softmax(lg, (kpos <= qpos) & (kpos < cur + T))
+        pr = _softmax(lg, L.replicated((kpos <= qpos) & (kpos < cur + T),
+                                       lg))
         if absorbed:
             o_lat = _ein("bhts,bsl->bthl", pr, ckv)       # latent output
             out = _ein("bthl,lhd->bthd", o_lat, _w(p, "wv_b"))
@@ -149,6 +173,7 @@ def mla_attention(
             out = _ein("bhts,bshd->bthd", pr, v)
         new_cache = {"c_kv": ckv, "k_rope": ckr, "len": cur + T}
 
+    out = L.shard(out, L.BATCH_AXES, None, "model", None)
     out = _ein("bthd,hdo->bto", out, _w(p, "wo"))
     return out.to(x.dtype), new_cache
 

@@ -7,8 +7,9 @@ assignment (GShard-style dropping), the expert products run batched over
 the expert dim, and the outputs gather back with gate weighting.  At
 decode token counts the dropless path dispatches by one-hot einsums over
 one global group instead (``_moe_decode_einsum``).  JAX reaches no Pallas
-kernel here, and the port runs plain PyTorch products: no expert
-parallelism (one card), so ``shard`` has no counterpart.
+kernel here, and the port runs plain PyTorch products.  The expert
+buffers carry JAX's sharding constraints (``layers.shard``, the expert
+axis on "model"), which act only in the dry run's sharded trace.
 
 Experts whose count does not divide JAX's 16-way expert axis are padded
 (Qwen's 60 -> 64); the pad experts are masked out of routing.
@@ -73,11 +74,20 @@ def _route(xc: torch.Tensor, router: torch.Tensor, m: MoECfg, E: int):
     first k of a stable descending sort."""
     logits = (xc @ router.to(COMPUTE_DTYPE)).float()
     if E > m.n_experts:
-        pad = torch.arange(E, device=xc.device) >= m.n_experts
+        pad = L.replicated(torch.arange(E, device=xc.device) >= m.n_experts,
+                           logits)
         logits = torch.where(pad, -1e30, logits)
-    probs = torch.softmax(logits, dim=-1)
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, eidx = vals[..., :m.top_k], idx[..., :m.top_k]
+    probs = L.pinned(torch.softmax(logits, dim=-1))
+    dt = L._dtensor_type()
+    if dt is not None and isinstance(probs, dt):
+        # the sort's backward mixes a plain index into DTensors (torch
+        # 2.11): the same gates gathered at the sorted experts
+        eidx = torch.sort(probs.detach(), dim=-1, descending=True,
+                          stable=True)[1][..., :m.top_k]
+        gate = torch.gather(probs, -1, eidx)
+    else:
+        vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+        gate, eidx = vals[..., :m.top_k], idx[..., :m.top_k]
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     return probs, gate, eidx
 
@@ -86,7 +96,8 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     """``F.one_hot(idx, n)`` (int64) without its range check: on a real
     device ``F.one_hot`` reads the indices' min and max to the host, one
     device sync a call; the indices here are in range by construction."""
-    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
+    return (idx[..., None] == L.replicated(
+        torch.arange(n, device=idx.device), idx)).long()
 
 
 def _aux(probs: torch.Tensor, eidx: torch.Tensor, m: MoECfg,
@@ -95,6 +106,14 @@ def _aux(probs: torch.Tensor, eidx: torch.Tensor, m: MoECfg,
     me = probs.reshape(-1, E).mean(dim=0)
     ce = _one_hot(eidx, E).float().sum(dim=-2).reshape(-1, E).mean(dim=0)
     return (me * ce).sum() * m.n_experts
+
+
+def _expert(p: dict, name: str) -> torch.Tensor:
+    """The experts' ``name`` ((E, D, F) ``wg`` / ``wu``, (E, F, D)
+    ``wd``) in the compute dtype.  A DTensor is all-gathered on its
+    "embed" dim as the model's other weights are (``LMModule.bf16``;
+    the experts are read in f32, not through it)."""
+    return L.gathered(p[name].to(COMPUTE_DTYPE), 2 if name == "wd" else 1)
 
 
 def _shared(p: dict, xc: torch.Tensor) -> torch.Tensor:
@@ -131,12 +150,13 @@ def _moe_decode_einsum(p: dict, x: torch.Tensor, m: MoECfg, E: int):
     # combine's product casts them
     gated = (disp * gate[:, :, None, None]).sum(1)           # (N, E, C) f32
     disp_b = disp.sum(1).to(COMPUTE_DTYPE)                   # (N, E, C)
-    buf = torch.einsum("nec,nd->ecd", disp_b, xf)
-    h = L.silu(torch.einsum("ecd,edf->ecf", buf,
-                            p["wg"].to(COMPUTE_DTYPE)))
-    h = h * torch.einsum("ecd,edf->ecf", buf, p["wu"].to(COMPUTE_DTYPE))
-    out_buf = torch.einsum("ecf,efd->ecd", h, p["wd"].to(COMPUTE_DTYPE))
-    out = torch.einsum("nec,ecd->nd", gated.to(COMPUTE_DTYPE), out_buf)
+    buf = L.shard(L.einsum("nec,nd->ecd", disp_b, xf), "model", None,
+                  None)
+    h = L.silu(L.einsum("ecd,edf->ecf", buf, _expert(p, "wg")))
+    h = h * L.einsum("ecd,edf->ecf", buf, _expert(p, "wu"))
+    h = L.shard(h, "model", None, None)
+    out_buf = L.einsum("ecf,efd->ecd", h, _expert(p, "wd"))
+    out = L.einsum("nec,ecd->nd", gated.to(COMPUTE_DTYPE), out_buf)
     aux = _aux(probs, eidx, m, E)
     if m.n_shared:
         out = out + _shared(p, xf)
@@ -176,22 +196,39 @@ def moe_ffn(p: dict, x: torch.Tensor, m: MoECfg,
     # dispatch: scatter tokens into (B, E, C, D) buffers.  Dropped
     # tokens add zeros at slot C - 1, so the accumulating scatter is
     # exact in any order
-    bidx = torch.arange(B, device=x.device)[:, None, None].expand(B, T, k)
     pos_c = torch.where(keep, pos, C - 1).long()
     contrib = torch.where(keep[..., None], xc[:, :, None, :].expand(
         B, T, k, D), 0.0).to(COMPUTE_DTYPE)
-    buf = torch.zeros((B, E, C, D), dtype=COMPUTE_DTYPE, device=x.device)
-    buf.index_put_((bidx, eidx, pos_c), contrib, accumulate=True)
+    dtensor = L._dtensor_type()
+    if dtensor is not None and isinstance(x, dtensor):
+        # DTensor has no sharding strategy for the indexed scatter and
+        # gather (torch 2.11): the same sums as one-hot products over the
+        # (expert, slot) pairs
+        slots = (_one_hot(eidx, E)[..., :, None]
+                 * _one_hot(pos_c, C)[..., None, :]).to(COMPUTE_DTYPE)
+        buf = L.einsum("btkec,btkd->becd", slots, contrib)
+    else:
+        bidx = torch.arange(B, device=x.device)[:, None, None].expand(
+            B, T, k)
+        buf = torch.zeros((B, E, C, D), dtype=COMPUTE_DTYPE,
+                          device=x.device)
+        buf.index_put_((bidx, eidx, pos_c), contrib, accumulate=True)
+    buf = L.shard(buf, ("pod", "data"), "model", None, None)  # EP boundary
 
     # expert products, batched over the experts
-    h = L.silu(torch.einsum("becd,edf->becf", buf,
-                            p["wg"].to(COMPUTE_DTYPE)))
-    h = h * torch.einsum("becd,edf->becf", buf, p["wu"].to(COMPUTE_DTYPE))
-    out_buf = torch.einsum("becf,efd->becd", h, p["wd"].to(COMPUTE_DTYPE))
+    h = L.silu(L.einsum("becd,edf->becf", buf, _expert(p, "wg")))
+    h = h * L.einsum("becd,edf->becf", buf, _expert(p, "wu"))
+    h = L.shard(h, ("pod", "data"), "model", None, None)
+    out_buf = L.shard(
+        L.einsum("becf,efd->becd", h, _expert(p, "wd")),
+        ("pod", "data"), "model", None, None)
 
     # combine: gather back, gate-weighted sum over k (the gates cast to
     # the compute dtype first, as in JAX)
-    gathered = out_buf[bidx, eidx, pos_c]                    # (B, T, k, D)
+    if dtensor is not None and isinstance(x, dtensor):
+        gathered = L.einsum("btkec,becd->btkd", slots, out_buf)
+    else:
+        gathered = out_buf[bidx, eidx, pos_c]                # (B, T, k, D)
     gathered = torch.where(keep[..., None], gathered, 0.0).to(COMPUTE_DTYPE)
     out = (gathered * gate[..., None].to(COMPUTE_DTYPE)).sum(dim=2)
     if m.n_shared:

@@ -117,24 +117,51 @@ class TimeMix(L.ParamGroup):
                    @ w("decay_b")).float())
         decay = torch.exp(-torch.exp(wlog))              # (B, T, D) in (0,1)
 
-        def heads(t):  # (B, T, D) -> (B*H, T, hd)
-            return (t.reshape(B, T, H, hd).transpose(1, 2)
-                    .reshape(B * H, T, hd))
-
-        bonus = (self.bonus[i].float()[None].expand(B, H, hd)
-                 .reshape(B * H, hd))
         s0 = None if state is None else state["S"]
-        o, s_new = ops.chunk_scan(
-            heads(r).float(), heads(k).float(), heads(v).float(),
-            heads(decay), bonus=bonus, state=s0, chunk=cfg.ssm.chunk,
-            impl=impl)
-        o = o.reshape(B, H, T, hd).transpose(1, 2).reshape(B, T, D)
-        o = L.groupnorm(o, H, eps=64e-5) * L.silu(g)
+        o, s_new = _heads_scan(r, k, v, decay, self.bonus[i], s0, hd,
+                               cfg.ssm.chunk, impl)
+        o = o * L.silu(g)
         out = (o.to(COMPUTE_DTYPE) @ w("wo")).to(x.dtype)
         new_state = None
         if state is not None:
             new_state = {"shift": xc[:, -1, :], "S": s_new}
         return out, new_state
+
+
+def _heads_scan(r, k, v, decay, bonus, s0, hd: int, chunk: int,
+                impl: str | None):
+    """The heads' recurrence: (B, T, D) inputs split into (B*H, T, hd)
+    heads, ``chunk_scan``, and the head-wise GroupNorm of its output;
+    returns (o (B, T, D), the new state).  On DTensors every (batch,
+    head) block scans on its own (``layers.per_shard``), so no
+    collective is needed where the heads split at head boundaries; with
+    a state (decode) the heads stay whole on each chip, the state's
+    flattened (B*H) rows split with the batch only."""
+    H = r.shape[-1] // hd
+
+    def core(r, k, v, decay, bonus, s0=None):
+        B, T, D = r.shape
+        h = D // hd
+
+        def heads(t):  # (B, T, D) -> (B*h, T, hd)
+            return (t.reshape(B, T, h, hd).transpose(1, 2)
+                    .reshape(B * h, T, hd))
+
+        o, s_new = ops.chunk_scan(
+            heads(r).float(), heads(k).float(), heads(v).float(),
+            heads(decay),
+            bonus=bonus.float()[None].expand(B, h, hd).reshape(B * h, hd),
+            state=s0, chunk=chunk, impl=impl)
+        o = o.reshape(B, h, T, hd).transpose(1, 2).reshape(B, T, D)
+        return L.groupnorm(o, h, eps=64e-5), s_new
+
+    dims = [(0, 2)] * 4 + [(None, 0)]
+    if s0 is None:
+        return L.per_shard(lambda *a: core(*a)[0], (r, k, v, decay, bonus),
+                           dims, [(0, 2)], H), None
+    return L.per_shard(core, (r, k, v, decay, bonus, s0),
+                       dims + [(0, None)], [(0, 2), (0, None)], H,
+                       whole_heads=True)
 
 
 class ChannelMix(L.ParamGroup):
@@ -148,7 +175,8 @@ class ChannelMix(L.ParamGroup):
         xs_delta = _shift(xc, prev) - xc
         xk = xc + xs_delta * w("mu_k")
         xr = xc + xs_delta * w("mu_r")
-        k = torch.square(torch.relu(xk @ w("wk")))
+        k = L.shard(torch.square(torch.relu(xk @ w("wk"))), L.BATCH_AXES,
+                    None, "model")
         kv = k @ w("wv")
         out = torch.sigmoid(xr @ w("wr")) * kv
         new_state = None if state is None else {"shift": xc[:, -1, :]}
@@ -185,7 +213,8 @@ class RWKV6(L.LMModule):
     def forward(self, batch: dict, *, mode: str = "train",
                 cache: dict | None = None, impl: str | None = None):
         cfg = self.cfg
-        x = L.embed(self.embed, batch["tokens"])
+        x = L.shard(L.embed(self.embed, batch["tokens"]), L.BATCH_AXES, None,
+                    None)
         lay = self.layers
         new = None if cache is None else {"tm": {"shift": [], "S": []},
                                           "cm": {"shift": []}}

@@ -239,6 +239,7 @@ class Transformer(L.LMModule):
         scale = _embed_scale(cfg, x.dtype)
         if scale is not None:
             x = x * scale
+        x = L.shard(x, L.BATCH_AXES, None, None)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         remat = (mode == "train" and _USE_REMAT
                  and L.records(x, *self.parameters()))
@@ -306,8 +307,9 @@ def loss_fn(cfg: ArchConfig, params: Transformer,
     labels = batch["labels"]
     if cfg.n_image_tokens and "img_embeds" in batch:
         # loss only over text positions
-        pad = torch.full((labels.shape[0], cfg.n_image_tokens), -1,
-                         dtype=labels.dtype, device=labels.device)
+        pad = L.replicated(torch.full(
+            (labels.shape[0], cfg.n_image_tokens), -1, dtype=labels.dtype,
+            device=labels.device), labels)
         labels = torch.cat([pad, labels], dim=1)
     mask = (labels >= 0).float()
     loss = L.cross_entropy(lg[:, :-1], torch.clamp(labels[:, 1:], min=0),

@@ -131,7 +131,9 @@ class Whisper(L.LMModule):
         (B, T_enc, d_model) in the compute dtype."""
         cfg = self.cfg
         table = _sinusoid(frames.shape[1], cfg.d_model).to(COMPUTE_DTYPE)
-        x = frames.to(COMPUTE_DTYPE) + table.to(frames.device)[None]
+        x = frames.to(COMPUTE_DTYPE) + L.replicated(
+            table.to(frames.device), frames)[None]
+        x = L.shard(x, L.BATCH_AXES, None, None)
         lay = self.enc_layers
         for i in range(cfg.enc_layers):
             h = L.rmsnorm(lay.ln1[i], x, cfg.norm_eps)
@@ -195,6 +197,7 @@ class Whisper(L.LMModule):
         offset = 0 if cache is None else int(cache["len"])
         pos_emb = self.dec_pos[offset:offset + T]
         x = L.embed(self.embed, tokens) + pos_emb[None].to(COMPUTE_DTYPE)
+        x = L.shard(x, L.BATCH_AXES, None, None)
         sc = None if cache is None else cache["self"]
         for i in range(cfg.n_layers):
             layer_cache = None if sc is None else {

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import model_zoo
+from repro_torch.models.layers import gathered
 
 
 def make_prefill_step(cfg: ArchConfig) -> Callable:
@@ -44,7 +45,10 @@ def make_decode_step(cfg: ArchConfig, temperature: float = 0.0) -> Callable:
             probs = torch.softmax(lg / temperature, dim=-1)
             nxt = torch.multinomial(probs, 1, generator=generator)[:, 0]
         else:
-            nxt = torch.argmax(lg, dim=-1)
+            # DTensor logits (the dry run's sharded trace): the vocab
+            # gathered first; DTensor's split argmax fails on a batch of
+            # one in torch 2.11
+            nxt = torch.argmax(gathered(lg, 1), dim=-1)
         return nxt[:, None].to(torch.int32), cache
 
     return decode

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.distributed import compression
+from repro_torch.models.layers import placed
 from repro_torch.distributed.pspec import tree_from_items, tree_items, tree_map
 from repro_torch.models import model_zoo
 from repro_torch.train.optimizer import AdamW, TrainState, param_tree
@@ -46,6 +47,11 @@ def loss_and_grads(cfg: ArchConfig, model, batch: dict,
             grads = torch.autograd.grad(
                 loss, [p for _, p in items], allow_unused=True,
                 materialize_grads=True)
+            # DTensor gradients (the dry run's sharded trace) come back
+            # with pending partial sums: reduce each into its parameter's
+            # placements once, the data-parallel gradient reduction
+            grads = [placed(g, getattr(p, "placements", None))
+                     for g, (_, p) in zip(grads, items)]
         return loss.detach(), tree_from_items([n for n, _ in items], grads)
 
     if microbatches <= 1:

@@ -144,7 +144,12 @@ def test_depth_variants_equal_jax(arch_id):
 def test_h100_constants_replace_the_tpu_ones():
     assert troof.PEAK_FLOPS == 989e12 and troof.HBM_BW == 3.35e12
     assert tmemory.HBM_PER_CHIP == 85_017_493_504
-    assert not hasattr(troof, "ICI_BW")
+    assert not hasattr(troof, "ICI_BW") and troof.LINK_BW == 450e9
+    t = troof.RooflineTerms(1e12, 1e9, 1e9, 256, 1e14, 0.0)
+    assert t.t_collective == 1e9 / 450e9 and t.bottleneck == "collective"
+    assert t.as_dict()["t_collective_s"] == t.t_collective
+    assert t.roofline_fraction == (1e14 / 256 / 989e12) / t.t_collective
+    # a cell whose sharded trace failed keeps the two other terms
     t = troof.RooflineTerms(1e12, 1e9, None, 256, 1e14, 0.0)
     assert t.t_collective is None and t.bottleneck == "compute"
     assert t.as_dict()["t_collective_s"] is None
@@ -232,9 +237,11 @@ def test_run_cell_gives_a_complete_record(kind):
     r = rec["roofline"]
     assert r["affine_exact"]          # the full depth is a sample here
     assert r["flops_per_chip"] == r["full_depth"]["flops"] / 8
-    assert r["collective_bytes_per_chip"] is None
-    assert r["t_collective_s"] is None
-    assert r["bottleneck"] in ("compute", "memory")
+    coll = sum(rec["collectives"]["bytes_by_kind"].values())
+    assert coll > 0 and r["collective_bytes_per_chip"] == coll
+    assert r["full_depth"]["collective_bytes"] == coll
+    assert r["t_collective_s"] == coll / troof.LINK_BW
+    assert r["bottleneck"] in ("compute", "memory", "collective")
     skipped = dr.run_cell("tinyllama-1.1b", "long_500k", False)
     assert skipped["status"] == "skipped"
 
@@ -302,28 +309,68 @@ def _records():
 
 
 def _port_records():
-    """The port's shape of record: no collectives, ``t_trace_s``, a
-    ``None`` collective term, and an error cell."""
+    """The port's shape of record: ``t_trace_s``, the collectives of its
+    sharded trace and their term, a cell whose sharded trace failed
+    (``collectives: {"error": ...}``, a ``None`` term) and an error
+    cell."""
     recs = {}
     for mesh in ("16x16", "16x16_opt"):
+        ok = mesh == "16x16"
         recs[("tinyllama-1.1b", "train_4k", mesh)] = {
             "arch": "tinyllama-1.1b", "shape": "train_4k", "mesh": mesh,
             "status": "ok", "t_trace_s": 2.7,
             "analytic_memory": {"total_gb": 19.95, "fits": True},
+            "collectives": ({"counts": {
+                "all-reduce": 98, "all-gather": 733, "reduce-scatter": 187,
+                "all-to-all": 48, "collective-permute": 0}} if ok
+                else {"error": "tinyllama-1.1b x train_4k x 16x16_opt: "
+                               "NotImplementedError: aten.foo"}),
             "roofline": {"t_compute_s": 0.0349, "t_memory_s": 0.0125,
-                         "t_memory_hlo_s": 0.3433, "t_collective_s": None,
-                         "bottleneck": "compute",
+                         "t_memory_hlo_s": 0.3433,
+                         "t_collective_s": 1.1283 if ok else None,
+                         "bottleneck": "collective" if ok else "compute",
                          "useful_flops_fraction": 0.784,
-                         "roofline_fraction": 0.7838 if mesh == "16x16"
-                         else 0.80}}
+                         "roofline_fraction": 0.0243 if ok else 0.80}}
     recs[("rwkv6-1.6b", "train_4k", "16x16")] = {
         "arch": "rwkv6-1.6b", "shape": "train_4k", "mesh": "16x16",
         "status": "error", "error": "RuntimeError: a host read on meta"}
     return recs
 
 
+def _port_opt_records():
+    """Port records in the cells JAX's tables read whole (the opt layout
+    and the multi-pod mesh; the 16x16 row reads ``t_compile_s``, where a
+    port record has ``t_trace_s``): the collectives of the sharded trace
+    and a roofline from the port's own ``RooflineTerms``, one cell
+    collective-bound and one compute-bound."""
+    recs = {}
+    for (a, s, coll, chips) in (("tinyllama-1.1b", "train_4k", 2e10, 256),
+                                ("deepseek-v2-236b", "decode_32k", 1e3,
+                                 256)):
+        terms = troof.RooflineTerms(
+            flops_per_chip=3.1e13, hbm_bytes_per_chip=4.2e10,
+            collective_bytes_per_chip=coll, chips=chips,
+            model_flops=6.4e15, hbm_bytes_model=1.1e10)
+        counts = {"all-reduce": 98, "all-gather": 733, "reduce-scatter": 187,
+                  "all-to-all": 48, "collective-permute": 0}
+        for mesh in ("16x16_opt", "2x16x16"):
+            rec = {"arch": a, "shape": s, "mesh": mesh, "layout": "opt",
+                   "status": "ok", "t_trace_s": 2.7,
+                   "t_sharded_trace_s": 4.1,
+                   "analytic_memory": {"total_gb": 19.95, "fits": True},
+                   "collectives": {"counts": counts, "bytes_by_kind": {
+                       k: int(coll) // 4 if v else 0
+                       for k, v in counts.items()}}}
+            if mesh == "16x16_opt":
+                rec["roofline"] = {**terms.as_dict(), "samples": [],
+                                   "n_full": 22, "affine_exact": True}
+            recs[(a, s, mesh)] = rec
+    return recs
+
+
 def test_report_tables_equal_jax_byte_for_byte(tmp_path):
     recs = _records()
+    recs.update(_port_opt_records())
     assert treport.dryrun_table(recs) == jreport.dryrun_table(recs)
     assert treport.roofline_table(recs) == jreport.roofline_table(recs)
     assert treport.roofline_table(recs, "16x16_opt") == \
@@ -345,17 +392,32 @@ def test_report_tables_equal_jax_byte_for_byte(tmp_path):
             sys.argv = argv
         outs.append(buf.getvalue())
     assert outs[0] == outs[1]
+    # the port records are in the tables, one of them collective-bound
+    rows = {tuple(ln.split(" | ")[:2]): ln for ln in
+            treport.roofline_table(recs, "16x16_opt").splitlines()}
+    assert "| collective | " in rows[("| tinyllama-1.1b", "train_4k")]
+    assert "| compute | " in rows[("| deepseek-v2-236b", "decode_32k")]
 
 
 def test_report_prints_a_missing_term_as_a_dash():
     recs = _port_records()
     dry = treport.dryrun_table(recs).splitlines()
-    assert "| tinyllama-1.1b | train_4k | ok | ? | 3 | 19.9 (y) | — |" in dry
+    assert ("| tinyllama-1.1b | train_4k | ok | ? | 3 | 19.9 (y) | "
+            "redu:98 gath:733 scat:187 all:48 |") in dry
     assert any(ln.startswith("| rwkv6-1.6b | train_4k | error |")
                for ln in dry)
     roof = treport.roofline_table(recs).splitlines()
+    assert ("| tinyllama-1.1b | train_4k | 0.0349 | 0.0125 | 0.343 | 1.1283 "
+            "| collective | 0.784 | 0.0243 | FSDP-2D layout (kills TP "
+            "activation ARs) |") == roof[2]
+    opt = treport.roofline_table(recs, "16x16_opt").splitlines()
     assert ("| tinyllama-1.1b | train_4k | 0.0349 | 0.0125 | 0.343 | — | "
-            "compute | 0.784 | 0.7838 |") in roof[2]
-    opt = treport.opt_compare_table(recs).splitlines()
-    assert "| tinyllama-1.1b x train_4k | step-time bound | 0.0349s | " \
-           "0.0349s | 1.0x |" in opt
+            "compute | 0.784 | 0.8000 |") in opt[2]
+    cmp_ = treport.opt_compare_table(recs).splitlines()
+    assert "| tinyllama-1.1b x train_4k | step-time bound | 1.1283s | " \
+           "0.0349s | 32.3x |" in cmp_
+    recs[("tinyllama-1.1b", "train_4k", "16x16")]["collectives"] = {
+        "error": "tinyllama-1.1b x train_4k x 16x16: NotImplementedError"}
+    dry = treport.dryrun_table(recs).splitlines()
+    assert "| tinyllama-1.1b | train_4k | ok | ? | 3 | 19.9 (y) | " \
+           "sharded trace error |" in dry

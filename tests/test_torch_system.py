@@ -432,26 +432,18 @@ def test_register_footprint_constant_in_features_as_jax(d1):
 #: each with its reason; a renamed counterpart is named in its reason.
 NOT_PORTED = {
     "analysis/roofline.py": {
-        "parse_collectives": "reads XLA's partitioned HLO text, which the "
-                             "port never has; the dry run's collective "
-                             "term is None (ROADMAP A)",
-        "CollectiveStats": "parse_collectives' result",
-        "CollectiveStats.total_bytes": "parse_collectives' result",
-        "ICI_BW": "the TPU interconnect rate parse_collectives' term reads",
+        "parse_collectives": "counterpart: CollectiveCounter, which counts "
+                             "the sharded trace's collectives (the port "
+                             "has no HLO text to parse)",
+        "ICI_BW": "counterpart: LINK_BW (the H100's NVLink rate)",
     },
     "launch/dryrun.py": {
         "lower_compile": "replaced by trace_cell: one step counted on meta "
                          "(analysis.roofline.OpCounter)",
     },
     "models/layers.py": {
-        "shard": "the layout is an argument of sharding.batch_spec / "
-                 "cache_spec instead",
-        "set_layout": "the layout is an argument of sharding.batch_spec / "
-                      "cache_spec instead",
         "scan_layers": "the models loop over their layers in Python",
         "set_unroll": "no lax.scan to unroll",
-        "BATCH_AXES": "with_sharding_constraint axes; the layout is an "
-                      "argument of sharding.batch_spec",
     },
     "distributed/sharding.py": {
         "flow_batch_spec": "a shard_map spec; the streaming engine splits "
