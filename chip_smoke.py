@@ -26,7 +26,9 @@ exits nonzero; nothing is caught and passed over):
    and with rows and a count out of range; kernel A at the hop's shape
    and at the one launch of ``window_features`` on the training split;
    kernel A over every registry feature and the hop kernel on a tile of
-   subnormal packet fields, so no flush-to-zero can slip in), and the
+   subnormal packet fields, so no flush-to-zero can slip in; kernel B in
+   both forms, the per-flow one from random SIDs with -1 among them, and
+   ``dispatch_dt_traverse`` as called, one launch of it), and the
    engine's ``cuda`` walk against its ``fused`` walk, all with
    ``torch.equal`` (zero tolerance);
 4. times   -- CUDA-event medians of each kernel and its plain version beside
@@ -35,7 +37,9 @@ exits nonzero; nothing is caught and passed over):
    at L = 8 (``WARP_MATCH_MIN_LEAVES``), and
    ``Engine.run`` flows/s from numpy, from a device-resident tensor and
    from one without the trace, beside the two-kernel walk it replaced
-   (kernel A, the SID dispatch and kernel B a hop) and the fetch alone;
+   (kernel A and kernel B a hop) and the fetch alone; kernel B's two
+   forms and ``dispatch_dt_traverse`` by graph replay, the call one
+   kernel node;
    then ``profile``, one traced ``Engine.run`` of each walk with its
    device-kernel count;
 4b. compact -- early-exit compaction on each exit profile (front, uniform,
@@ -92,8 +96,10 @@ exits nonzero; nothing is caught and passed over):
    evaluator; on its models ``fleet_predict`` of the test windows equals
    each ``pdt.predict``, ``Engine.run`` and the CPU plain hop, with one
    hop-kernel launch a model's partition and none of kernels A and B;
-   times of ``fleet_predict``, its hop launches (events, graph replay)
-   and the plain hops beside their bound
+   kernel B's two forms on each model's deep tables (random SIDs, -1
+   among them, registers on the thresholds) against their plain
+   versions; times of ``fleet_predict``, its hop launches (events, graph
+   replay) and the plain hops beside their bound
    (from the flows still live at each hop), each model's walk alone
    beside its (S, k, T, L) and live flows a hop, M x ``Engine.run`` and
    M x ``pdt.predict``, at the test split and tiled to 2^20 flows.  Last, on ``make_dataset("d2",
@@ -131,7 +137,10 @@ exits nonzero; nothing is caught and passed over):
    line parses back to the snapshot, and an HTTP scrape of ``/metrics``
    on 127.0.0.1 equals ``to_prometheus()``;
 6. serve_check -- both fold kernels against their plain versions at the
-   serving rank width and at a width that is no multiple of a block; the
+   serving rank width and at a width that is no multiple of a block, in
+   the row form and in the table form (a copy of the resident state
+   folded in place, dummy-row duplicates holding -0.0 and NaN; the real
+   rows bit for bit against the row form); the
    tick kernel against its plain version (the rank loop, on a clone of
    the same state) on every tick of a 1,024-flow prefix with a 512-slot
    table (spill) and a timeout, on the 8 main-stream ticks up to the
@@ -142,11 +151,13 @@ exits nonzero; nothing is caught and passed over):
    verdict in order and every stats field;
 7. serve_times -- the tick kernel's device time at the steady-state
    tick's (R, C) (graph replay of restore-and-call less the restore),
-   its call time, the rank loop's time; kernel B bare and behind the SID
-   dispatch at the serving width (graph replay); CUDA-event medians of
-   both fold kernels and their plain versions, their device time from
-   CUDA-graph replay; each beside its bound; one traced steady-state
-   tick;
+   its call time, the rank loop's time; kernel B's two forms and
+   ``dispatch_dt_traverse`` (one kernel node) at the serving width
+   (graph replay); CUDA-event medians of both fold kernels and their
+   plain versions, their device time from CUDA-graph replay; the table
+   form as the legacy engine calls it (one kernel node) and at 2^20
+   rows beside the floor of one PyTorch op; each beside its bound; one
+   traced steady-state tick;
 8. lm -- the LM slice at full width: ``rwkv6-1.6b`` (24 layers, D = 2048,
    32 heads of 64, vocab 65536, chunk 128, 1.6 B random f32 parameters
    made on the card from a seeded generator) served by
@@ -356,6 +367,8 @@ CHECK_CONCURRENCY = 2048.0
 CHECK_TIMEOUT = 0.05      # stream seconds; evicts some idle flows (a
 #                           shorter one evicts so many that none spill)
 CHECK_TICK = 4096
+FOLD_PAD = 37             # dummy-row duplicates padding a checked fold rank
+FOLD_ROWS = 1 << 20       # rows of the fold's table form timed at scale
 MAIN_TICKS_CHECKED = 8    # main-stream ticks held against the rank loop
 WIDE_K = (9, 41)          # models past the tick kernel's register templates
 WIDE_FLOWS = 1024         # flows of each such stream
@@ -457,6 +470,17 @@ def emit(phase: str, **fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, the sign of a zero included; a NaN equals a NaN
+    of any payload."""
+    import torch
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return a.shape == b.shape and bool(
+        ((a.view(torch.int32) == b.view(torch.int32))
+         | (a.isnan() & b.isnan())).all())
 
 
 def cuda_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -3861,6 +3885,132 @@ def fleet_bound(exit_p: np.ndarray, W: int, engs) -> dict:
                 bound_ms(windows_once + carry_tables, n_ops)[0]}
 
 
+def fold_table_times(card, tab_args, stream, dev, k: int) -> dict:
+    """The fold's table forms timed: at the serving width as the legacy
+    tick engine calls them (``feature_update_at`` on pre-gathered rows,
+    ``_fold_rank`` on the SID-keyed tables), each one kernel node (gate),
+    by graph replay beside the plain version (CUDA events); at
+    ``FOLD_ROWS`` rows of a ``FOLD_ROWS + 1``-row table, k of ``dev``,
+    from random SIDs, at random and at sorted slots, both forms beside
+    their bound; and the floor: one PyTorch op on a one-element tensor,
+    graph-replayed (a yardstick, no port).  Every timed call folds its
+    own copy of the state in place, over and over: the values drift and
+    the times do not depend on them."""
+    import torch
+
+    from repro_torch.kernels import feature_window as fw
+    from repro_torch.serve.flowtable import _fold_rank
+
+    acc, seen, slots, sid, pkt = (t.clone() for t in tab_args[:5])
+    C = slots.shape[0]
+    rows = tuple(t[sid.long()] for t in dev[:3])
+    at_call = lambda: fw.feature_update_at(acc, seen, slots, pkt, *rows)
+    rank_call = lambda: _fold_rank(acc, seen, pkt, sid, slots, dev,
+                                   cuda=True)
+    nodes = {"feature_update_at": graph_kernel_nodes(at_call),
+             "_fold_rank": graph_kernel_nodes(rank_call)}
+    check(nodes == {"feature_update_at": 1, "_fold_rank": 1},
+          f"the fold as called on a CUDA table: one kernel node, got "
+          f"{nodes}")
+    serving = {
+        "C": C, "kernel_nodes": nodes,
+        "feature_update_at_graph_ms": graph_ms(at_call, 200),
+        "fold_rank_graph_ms": graph_ms(rank_call, 200),
+        "fold_rank_call_ms": cuda_ms(rank_call, reps=50, warmup=5),
+        "plain_ms": cuda_ms(lambda: fw.feature_update_table_ref(
+            acc, seen, slots, sid, pkt, *dev[:3]), reps=50, warmup=5)}
+    # a row reads its packet, slot and SID and its state, and writes its
+    # state; the finalize form also writes k registers
+    row_bytes = 6 * 4 + 4 + 4 + 2 * k * 8
+    serving["bound_ms"], serving["bound_by"] = bound_ms(C * row_bytes,
+                                                        5 * C * k)
+    n = FOLD_ROWS
+    gen = torch.Generator(device=card).manual_seed(0xF01D)
+    S = dev.slot_op.shape[0]
+    big_sid = torch.randint(0, S, (n,), generator=gen, device=card,
+                            dtype=torch.int32)
+    big_acc, big_seen = (torch.zeros(n + 1, k, device=card),
+                         torch.zeros(n + 1, k, dtype=torch.int32,
+                                     device=card))
+    big_pkt = torch.from_numpy(stream.pkts[:n]).to(card)
+    perm = torch.randperm(n, generator=gen, device=card).to(torch.int32)
+    ordered = torch.arange(n, dtype=torch.int32, device=card)
+    big = {"rows": n, "k": k}
+    for tag, sl in (("random_slots", perm), ("sorted_slots", ordered)):
+        fold = lambda: fw.feature_update_table_kernel(
+            big_acc, big_seen, sl, big_sid, big_pkt, *dev[:3])
+        fin = lambda: fw.feature_update_finalize_table_kernel(
+            big_acc, big_seen, sl, big_sid, big_pkt, *dev[:4])
+        big[tag] = {"fold_graph_ms": graph_ms(fold, 20),
+                    "finalize_graph_ms": graph_ms(fin, 20)}
+    big["plain_ms"] = cuda_ms(lambda: fw.feature_update_table_ref(
+        big_acc, big_seen, perm, big_sid, big_pkt, *dev[:3]), reps=3,
+        warmup=1)
+    big["fold_bytes"] = n * row_bytes
+    big["fold_bound_ms"], big["fold_bound_by"] = bound_ms(n * row_bytes,
+                                                          5 * n * k)
+    big["finalize_bytes"] = n * (row_bytes + k * 4)
+    big["finalize_bound_ms"], big["finalize_bound_by"] = bound_ms(
+        n * (row_bytes + k * 4), 6 * n * k)
+    one = torch.zeros(1, device=card)
+    return {"serving": serving, "rows_2^20": big,
+            "floor_one_op_graph_ms": graph_ms(lambda: one.add_(1.0), 200)}
+
+
+def kernel_b_deep(card, engs, B: int) -> list:
+    """Kernel B's two forms on each engine's own tables (the DSE fleet's
+    deep subtrees: the warp match from ``engine_hop.WARP_MATCH_MIN_LEAVES``
+    leaves) against their plain versions, ``torch.equal``: ``B`` flows
+    with random SIDs over [-1, S) and registers drawn from their
+    subtree's thresholds (half of them nudged one ulp up), so marks land
+    on every boundary; the block form on blocks of 128 with random
+    SIDs.  Returns a row per engine with its shape, its match and the
+    share of flows that hit a leaf (gated above 0)."""
+    import torch
+
+    from repro_torch.kernels import dt_traverse
+    from repro_torch.kernels import engine_hop as eh
+
+    rows = []
+    g = torch.Generator(device=card).manual_seed(0xDEE)
+    for e in engs:
+        dev = e.tables.dev
+        S, k, T = dev.thresholds.shape
+        L = dev.leaf_lo.shape[1]
+        sid = torch.randint(-1, S, (B,), generator=g, device=card,
+                            dtype=torch.int32)
+        r = torch.where(sid < 0, sid + S, sid).long()
+        t = torch.randint(0, T, (B, k), generator=g, device=card)
+        j = torch.arange(k, device=card)
+        regs = dev.thresholds[r[:, None], j[None, :], t]
+        regs = torch.where(torch.isinf(regs), 1e30, regs)
+        up = torch.rand(B, k, generator=g, device=card) < 0.5
+        regs = torch.where(up, torch.nextafter(regs, torch.full_like(
+            regs, float("inf"))), regs).contiguous()
+        args = (regs, sid, *dev[4:])
+        want = dt_traverse.dt_traverse_flows_ref(*args)
+        got = dt_traverse.dt_traverse_flows_kernel(*args)
+        bb = 128
+        nb = B // bb
+        block_sid = torch.randint(0, S, (nb,), generator=g, device=card,
+                                  dtype=torch.int32)
+        b_args = (block_sid, regs[:nb * bb].contiguous(), *dev[4:])
+        got_b = dt_traverse.dt_traverse_kernel(*b_args, block_b=bb)
+        want_b = dt_traverse.dt_traverse_blocks_ref(*b_args, block_b=bb)
+        torch.cuda.synchronize()
+        hit = float((want >= 0).float().mean())
+        check(torch.equal(got, want) and torch.equal(got_b, want_b)
+              and hit > 0,
+              f"kernel B on deep tables (S={S}, k={k}, T={T}, L={L}): "
+              f"both forms == plain, hits {hit}")
+        rows.append({"S": S, "k": k, "T": T, "L": L, "B": B,
+                     "match": ("warp" if L >= eh.WARP_MATCH_MIN_LEAVES
+                               else "serial"),
+                     "sid_minus_one": int((sid == -1).sum()),
+                     "hit_share": hit, "equal": True})
+    return rows
+
+
 def fit_phase(card, ds) -> dict:
     """Phase ``fit``: the trainer and the DSE's batched evaluator on the
     card, on ``ds`` (``make_dataset("d2", SERVE_FLOWS, seed=1)``, which
@@ -3890,7 +4040,9 @@ def fit_phase(card, ds) -> dict:
     ``SearchSpace()`` with ``FLEET_SEED``, on windows of
     ``SearchSpace().max_partitions``.  ``evaluate_batch`` trains them with
     ``trainer="torch"`` and equals the serial evaluator on every config
-    (gate); the models it scored are the fleet.  Gates: ``fleet_predict``
+    (gate); the models it scored are the fleet; kernel B's two forms on
+    their tables against the plain versions (``kernel_b_deep``).  Gates:
+    ``fleet_predict``
     on the test windows equals each model's ``pdt.predict`` and
     ``Engine.run``, and the same call on CPU tensors (the plain hop); one
     hop-kernel launch a model's partition and none of kernels A and B.
@@ -4205,6 +4357,11 @@ def fit_phase(card, ds) -> dict:
         check(np.array_equal(g_big, np.tile(g, (1, reps))[:, :B_MAIN]),
               f"fleet {name} at B_MAIN == the tiled test split")
     step("fleet gates", t_step)
+
+    # -- kernel B on the fleet's deep tables ------------------------------
+    t_step = time.perf_counter()
+    out["kernel_b_deep"] = kernel_b_deep(card, engs, B)
+    step("kernel B on deep tables", t_step)
 
     def walks(xx, hop, engines=None):
         """fleet_predict's hop launches alone: no pack, no fetch."""
@@ -4655,12 +4812,16 @@ def main() -> int:
     rows = [t[sid.long()] for t in dev[:4]]
     checks = {}
 
-    def compare(name, got, want, log=None):
+    def compare(name, got, want, log=None, nan_equal=False):
+        """``torch.equal``; with ``nan_equal`` a NaN equals a NaN of any
+        payload (the fold's state may hold NaN)."""
         torch.cuda.synchronize()
-        equal = bool(torch.equal(got, want))
+        same = got == want
+        if nan_equal:
+            same = same | (got.isnan() & want.isnan())
+        equal = got.shape == want.shape and bool(same.all())
         # equal elements count 0, so matching infinities do not give NaN
-        diff = torch.where(got == want, 0.0,
-                           (got.double() - want.double()).abs())
+        diff = torch.where(same, 0.0, (got.double() - want.double()).abs())
         err = float(diff.max()) if got.numel() else 0.0
         (checks if log is None else log)[name] = {"equal": equal,
                                                   "max_abs_err": err}
@@ -4695,6 +4856,27 @@ def main() -> int:
         ref.dt_traverse_ref(regs, dev.thresholds[s], dev.leaf_lo[s],
                             dev.leaf_hi[s], dev.leaf_action[s],
                             dev.leaf_valid[s] > 0)))
+    # kernel B's per-flow form (each flow its own subtree, no grouping)
+    # from random SIDs, -1 among them (row S - 1); dispatch_dt_traverse
+    # as called is one launch of it
+    g_b = torch.Generator(device=card).manual_seed(0xB)
+    sid_b = torch.randint(-1, S, (B_MAIN,), generator=g_b, device=card,
+                          dtype=torch.int32)
+    flow_args = (regs, sid_b, *dev[4:])
+    want_flows = dt_traverse.dt_traverse_flows_ref(*flow_args)
+    err_b = max(err_b, compare(
+        f"dt_traverse[flows,S={S},k={k},T={T},L={L},SID -1]",
+        dt_traverse.dt_traverse_flows_kernel(*flow_args), want_flows))
+    n_b = dt_traverse.launches
+    err_b = max(err_b, compare(
+        "dt_traverse[dispatch as called,SID -1]",
+        dispatch.dispatch_dt_traverse(regs, sid_b, *dev[4:], block_b=bb),
+        want_flows))
+    check(dt_traverse.launches == n_b + 1
+          and int((sid_b == -1).sum()) > 0
+          and int((want_flows >= 0).sum()) > 0,
+          "dispatch_dt_traverse: one launch of the per-flow form, SIDs of "
+          "-1 among the flows, some leaf hit")
 
     # the hop kernel against engine_hop_ref on every hop of a walk from
     # random SIDs (-1 among them) with a third of the flows done; the
@@ -4836,6 +5018,21 @@ def main() -> int:
         *b_args, block_b=bb))
     ms_dispatch = cuda_ms(lambda: dispatch.dispatch_dt_traverse(
         regs, sid, *dev[4:], block_b=bb))
+    # both forms and the dispatch as called, by graph replay; the call is
+    # one kernel node
+    flows_call = lambda: dt_traverse.dt_traverse_flows_kernel(*flow_args)
+    disp_call = lambda: dispatch.dispatch_dt_traverse(regs, sid_b, *dev[4:],
+                                                      block_b=bb)
+    ms_flows = cuda_ms(flows_call)
+    graph_flows = graph_ms(flows_call, 20)
+    graph_b = graph_ms(lambda: dt_traverse.dt_traverse_kernel(
+        *b_args, block_b=bb), 20)
+    graph_dispatch = graph_ms(disp_call, 20)
+    dispatch_nodes = graph_kernel_nodes(disp_call)
+    check(dispatch_nodes == 1, f"dispatch_dt_traverse on a CUDA tensor: "
+          f"one kernel node, got {dispatch_nodes}")
+    plain_flows = cuda_ms(lambda: dt_traverse.dt_traverse_flows_ref(
+        *flow_args))
 
     bound_a, by_a = feature_window_bound(B_MAIN, W, k)
     bound_a41, by_a41 = feature_window_bound(3 * tr.n_flows, xtr.shape[2],
@@ -4885,6 +5082,12 @@ def main() -> int:
     b_bytes = (nb * 4 + nb * bb * k * 4 + nb * bb * 4
                + sum(t.numel() * 4 for t in dev[4:]))
     bound_b, by_b = bound_ms(b_bytes, nb * bb * (k * T + 2 * L * k))
+    # the per-flow form: registers and SIDs read, actions written, the
+    # tables read once
+    flows_bytes = (B_MAIN * k * 4 + B_MAIN * 4 * 2
+                   + sum(t.numel() * 4 for t in dev[4:]))
+    bound_flows, by_flows = bound_ms(flows_bytes,
+                                     B_MAIN * (k * T + 2 * L * k))
 
     # the run's own peak: what it allocates above the tensors held here
     held = torch.cuda.memory_allocated()
@@ -4930,6 +5133,13 @@ def main() -> int:
          feature_window_k41_bound_ms=bound_a41,
          dt_traverse_ms=ms_b, dt_traverse_plain_ms=plain_b,
          dt_traverse_bound_ms=bound_b, dispatch_dt_traverse_ms=ms_dispatch,
+         dt_traverse_graph_ms=graph_b, dt_traverse_flows_ms=ms_flows,
+         dt_traverse_flows_graph_ms=graph_flows,
+         dt_traverse_flows_plain_ms=plain_flows,
+         dt_traverse_flows_bound_ms=bound_flows,
+         dt_traverse_flows_bytes=flows_bytes,
+         dispatch_dt_traverse_graph_ms=graph_dispatch,
+         dispatch_dt_traverse_kernel_nodes=dispatch_nodes,
          engine_run_from_numpy_s=run_np_s,
          engine_flows_per_s_from_numpy=B_MAIN / run_np_s,
          engine_run_from_device_s=run_dev_s,
@@ -5085,6 +5295,27 @@ def main() -> int:
         return (pkt, *(t[sid] for t in dev[:4]), st.acc[rows].contiguous(),
                 st.seen[rows].contiguous())
 
+    def fold_table_args(C):
+        """The table forms' inputs at width C: a copy of the resident
+        state (its dummy row's acc set to -0.0 and NaN in turn), C -
+        FOLD_PAD unique real rows with the stream's packets and their
+        SIDs, then FOLD_PAD duplicates of the dummy row with a zero
+        packet and SID 0; the engine's SID-keyed slot tables."""
+        N = srv.table.capacity
+        acc_t, seen_t = st.acc.clone(), st.seen.clone()
+        acc_t[N] = torch.tensor([-0.0, float("nan")] * k,
+                                device=card)[:k]
+        gen = torch.Generator(device=card).manual_seed(C)
+        slots_t = torch.full((C,), N, dtype=torch.int32, device=card)
+        slots_t[:C - FOLD_PAD] = torch.randperm(
+            N, generator=gen, device=card)[:C - FOLD_PAD].to(torch.int32)
+        sid_t = torch.zeros(C, dtype=torch.int32, device=card)
+        sid_t[:C - FOLD_PAD] = st.sid[slots_t[:C - FOLD_PAD].long()]
+        pkt_t = torch.zeros(C, 6, device=card)
+        pkt_t[:C - FOLD_PAD] = torch.from_numpy(
+            stream.pkts[:C - FOLD_PAD]).to(card)
+        return (acc_t, seen_t, slots_t, sid_t, pkt_t, *dev[:4])
+
     err3 = err4 = 0.0
     C_odd = C_serve - 37                # no multiple of any block size
     for C in (C_serve, C_odd):
@@ -5102,6 +5333,61 @@ def main() -> int:
             err4 = max(err4, compare(
                 f"feature_update_finalize[C={C},k={k}][{i}]", got, want_,
                 serve_checks))
+
+    # the table forms, folded in place on a copy of the resident state:
+    # C entries, the last 37 dummy-row duplicates with an invalid packet
+    # and SID 0 (as _pad_slots pads a rank), the dummy row holding -0.0
+    # and NaN; held to the plain version (gather, fold, scatter) and, on
+    # the real rows, to the row forms
+    for C in (C_serve, C_odd):
+        tab_args = fold_table_args(C)
+        n_real = C - FOLD_PAD
+        for name, kern, plain, rows_fn in (
+                ("feature_update", fw.feature_update_table_kernel,
+                 fw.feature_update_table_ref, lambda a: a[5:8]),
+                ("feature_update_finalize",
+                 fw.feature_update_finalize_table_kernel,
+                 fw.feature_update_finalize_table_ref, lambda a: a[5:9])):
+            acc_t, seen_t, slots_t, sid_t, pkt_t = tab_args[:5]
+            fresh = lambda: (acc_t.clone(), seen_t.clone(), slots_t, sid_t,
+                             pkt_t, *rows_fn(tab_args))
+            got = kern(*fresh())
+            want_ = plain(*fresh())
+            for i, (a_, b_) in enumerate(zip(got, want_)):
+                e = compare(f"{name}[table,C={C},k={k}][{i}]", a_, b_,
+                            serve_checks, nan_equal=True)
+                if name == "feature_update":
+                    err3 = max(err3, e)
+                else:
+                    err4 = max(err4, e)
+            dummy = acc_t.shape[0] - 1
+            for i in range(2):
+                check(same_bits(got[i][dummy], want_[i][dummy]),
+                      f"{name}[table,C={C}]: the dummy row bit for bit")
+            # the row form on the real rows, from the same template
+            r = slots_t[:n_real].long()
+            sl = sid_t[:n_real].long()
+            row_args = (pkt_t[:n_real], *(t[sl] for t in rows_fn(tab_args)),
+                        acc_t[r], seen_t[r])
+            row_out = (fw.feature_update_kernel if name == "feature_update"
+                       else fw.feature_update_finalize_kernel)(*row_args)
+            tab_rows = (got[0][r], got[1][r])
+            if name == "feature_update_finalize":
+                tab_rows += (got[2][:n_real],)
+            for a_, b_ in zip(tab_rows, row_out):
+                check(same_bits(a_, b_),
+                      f"{name}[table,C={C}] == the row form bit for bit")
+        # feature_update_at with pre-gathered rows (sid = row)
+        acc_t, seen_t, slots_t, sid_t, pkt_t = tab_args[:5]
+        sl = sid_t.long()
+        got = fw.feature_update_at(acc_t.clone(), seen_t.clone(), slots_t,
+                                   pkt_t, *(t[sl] for t in tab_args[5:8]))
+        want_ = fw.feature_update_table_ref(acc_t.clone(), seen_t.clone(),
+                                            slots_t, sid_t, pkt_t,
+                                            *tab_args[5:8])
+        for i, (a_, b_) in enumerate(zip(got, want_)):
+            err3 = max(err3, compare(f"feature_update_at[C={C},k={k}][{i}]",
+                                     a_, b_, serve_checks, nan_equal=True))
 
     sub = slice(0, CHECK_FLOWS)
     ds_p = FlowDataset(ds_s.packets[sub], ds_s.lengths[sub],
@@ -5169,7 +5455,8 @@ def main() -> int:
             "stats": a_stats, "cuda_launches": a_l,
             "cuda_launches_per_tick": {k: n / a_stats["ticks"]
                                        for k, n in a_l.items()},
-            "cuda_s": a_s, "fused_s": b_s, "verdicts_equal": True,
+            "cuda_s": a_s, "cuda_s_per_tick": a_s / a_stats["ticks"],
+            "fused_s": b_s, "verdicts_equal": True,
             "stats_equal": True}
 
     # the main stream on a fresh server: kernel against rank loop on the
@@ -5267,6 +5554,8 @@ def main() -> int:
     bound3, by3 = bound_ms(bytes3, 4 * n_slot)
     bound4, by4 = bound_ms(bytes4, 5 * n_slot)
     legacy_ticks = route_runs["legacy"]["stats"]["ticks"]
+    fold_table = fold_table_times(card, fold_table_args(C_serve), stream,
+                                  dev, k)
 
     # the tick kernel on the steady-state tick checked above: its device
     # time is the graph replay of (restore the state, one call) less the
@@ -5344,8 +5633,18 @@ def main() -> int:
         ref.dt_traverse_ref(regs_c, dev.thresholds[sl], dev.leaf_lo[sl],
                             dev.leaf_hi[sl], dev.leaf_action[sl],
                             dev.leaf_valid[sl] > 0), times_checks))
+    flows_c = lambda: dt_traverse.dt_traverse_flows_kernel(regs_c, sid_c,
+                                                           *dev[4:])
+    err_bs = max(err_bs, compare(
+        f"dt_traverse[flows,C={C_t}]", flows_c(),
+        dt_traverse.dt_traverse_flows_ref(regs_c, sid_c, *dev[4:]),
+        times_checks))
     trav_ms = graph_ms(trav, 200)
-    disp_ms = graph_ms(disp, 50)
+    disp_ms = graph_ms(disp, 200)
+    flows_ms_c = graph_ms(flows_c, 200)
+    disp_nodes_c = graph_kernel_nodes(disp)
+    check(disp_nodes_c == 1, f"dispatch_dt_traverse at the serving width: "
+          f"one kernel node, got {disp_nodes_c}")
     trav_plain_ms = cuda_ms(lambda: dt_traverse.dt_traverse_blocks_ref(
         *bs_args, block_b=bb), reps=20, warmup=3)
     nb_s = d_s.block_sid.shape[0]
@@ -5367,8 +5666,11 @@ def main() -> int:
          dt_traverse_serving=dict(
              blocks=nb_s, block_b=bb, ms=trav_ms, plain_ms=trav_plain_ms,
              bound_ms=trav_bound, bound_by=trav_by,
-             dispatch_ms=disp_ms, dispatch_bound_ms=disp_bound,
+             flows_ms=flows_ms_c, dispatch_ms=disp_ms,
+             dispatch_kernel_nodes=disp_nodes_c,
+             dispatch_bound_ms=disp_bound,
              dispatch_bound_by=disp_by, max_abs_err=err_bs),
+         fold_table=fold_table,
          comparisons=times_checks,
          feature_update_ms=ms3, feature_update_call_ms=call3,
          feature_update_plain_ms=plain3,
@@ -5516,16 +5818,26 @@ def main() -> int:
          "run_looped_launches": {
              prof: c["run_looped_launches"]
              for prof, c in compact_out.items() if prof != "phase_s"},
-         "ms": ms_b, "plain_ms": plain_b, "bound_ms": bound_b,
-         "bound_by": by_b, "library_ms": None,
-         "shape": f"nb={nb},bb={bb},S={S},k={k},T={T},L={L}",
+         "form": "per flow (what dispatch_dt_traverse launches)",
+         "ms": ms_flows, "graph_ms": graph_flows, "plain_ms": plain_flows,
+         "bound_ms": bound_flows, "bound_by": by_flows, "library_ms": None,
+         "shape": f"B={B_MAIN},S={S},k={k},T={T},L={L}, SIDs -1..S-1",
+         "as_called": {"dispatch_ms": ms_dispatch,
+                       "dispatch_graph_ms": graph_dispatch,
+                       "kernel_nodes": dispatch_nodes},
+         "block_form": {"shape": f"nb={nb},bb={bb}", "ms": ms_b,
+                        "graph_ms": graph_b, "plain_ms": plain_b,
+                        "bound_ms": bound_b, "bound_by": by_b},
          "serving_width": {"shape": f"nb={nb_s},bb={bb}", "ms": trav_ms,
                            "plain_ms": trav_plain_ms,
                            "bound_ms": trav_bound,
+                           "flows_ms": flows_ms_c,
                            "dispatch_ms": disp_ms,
+                           "dispatch_kernel_nodes": disp_nodes_c,
                            "dispatch_bound_ms": disp_bound,
                            "launches_in_serve": serve_launches[
                                "dt_traverse"]},
+         "deep_tables": fit_out["kernel_b_deep"],
          "equal": True},
         {"name": "feature_update", "route": "cuda",
          "source": "src/repro_torch/csrc/feature_update.cu",
@@ -5535,7 +5847,13 @@ def main() -> int:
          "max_abs_err": err3, "ms": ms3, "call_ms": call3,
          "plain_ms": plain3,
          "bound_ms": bound3, "bound_by": by3, "library_ms": None,
-         "shape": f"C={C_serve},k={k}", "equal": True},
+         "shape": f"C={C_serve},k={k}, row form", "equal": True,
+         "table_form": {
+             "serving": fold_table["serving"],
+             "rows_2^20": {key: fold_table["rows_2^20"][key] for key in (
+                 "rows", "random_slots", "sorted_slots", "plain_ms",
+                 "fold_bound_ms", "fold_bound_by")},
+             "floor_one_op_graph_ms": fold_table["floor_one_op_graph_ms"]}},
         {"name": "feature_update_finalize", "route": "cuda",
          "source": "src/repro_torch/csrc/feature_update.cu",
          "replaces": "src/repro/kernels/feature_window.py:276",
@@ -5545,7 +5863,15 @@ def main() -> int:
          "max_abs_err": err4, "ms": ms4, "call_ms": call4,
          "plain_ms": plain4,
          "bound_ms": bound4, "bound_by": by4, "library_ms": None,
-         "shape": f"C={C_serve},k={k}", "equal": True},
+         "shape": f"C={C_serve},k={k}, row form", "equal": True,
+         "table_form_rows_2^20": {
+             "random_slots_graph_ms":
+                 fold_table["rows_2^20"]["random_slots"][
+                     "finalize_graph_ms"],
+             "sorted_slots_graph_ms":
+                 fold_table["rows_2^20"]["sorted_slots"][
+                     "finalize_graph_ms"],
+             "bound_ms": fold_table["rows_2^20"]["finalize_bound_ms"]}},
         {"name": "tick_step", "route": "cuda",
          "source": "src/repro_torch/csrc/tick_step.cu",
          "replaces": "src/repro/kernels/feature_window.py:276 and "

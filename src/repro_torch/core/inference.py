@@ -26,7 +26,7 @@ arrays are views of that host copy, owned by the result.
 * **looped** -- a host loop with one device-to-host sync per hop
   (:class:`LoopedBackend`, ``Engine.run_looped``): the carry lives on the
   host and each hop calls the per-op routes on the engine's device
-  tables, kernel A then kernel B behind the SID dispatch on the card,
+  tables, kernel A then kernel B (one launch each a hop) on the card,
   their plain versions on the CPU.
 
 Backend selection is ``repro_torch.tuning.resolve_route``, shared with

@@ -1,13 +1,22 @@
-"""Device-side SID dispatch for the range-match kernel (port of
+"""Device-side SID dispatch for the range match (port of
 ``repro.kernels.dispatch``).
 
-The range-match kernel stages ONE subtree's tables in shared memory per
-thread block, so flows are grouped into SID-homogeneous blocks first:
-stable argsort by SID, per-SID counts, block-aligned segment offsets,
-and a binary search that maps each capacity block back to its SID.
-All of it is torch glue on the device, with no host sync: the counts
-come from ``index_add_`` (``torch.bincount`` on CUDA reads its maximum
-back to the host), and every shape depends only on ``(B, S, block_b)``.
+The TPU's range-match kernel staged ONE subtree's tables a grid step, so
+the JAX package groups flows into SID-homogeneous blocks first: stable
+argsort by SID, per-SID counts, block-aligned segment offsets, and a
+binary search that maps each capacity block back to its SID.  The port
+keeps that plan under JAX's names (:func:`sid_dispatch`,
+:func:`capacity_blocks`, :class:`SidDispatch`), torch glue on the device
+with no host sync: the counts come from ``index_add_``
+(``torch.bincount`` on CUDA reads its maximum back to the host), and
+every shape depends only on ``(B, S, block_b)``.
+
+Kernel B needs no such grouping on the H100: each flow reads its own SID
+and its own subtree's rows (``kernels.dt_traverse``).  So
+:func:`dispatch_dt_traverse` on a CUDA tensor is one launch of kernel B's
+per-flow form, and on a CPU tensor runs the plan above and the block
+form's plain version, which the CPU tests hold to JAX's
+``dispatch_dt_traverse``; both give each flow its own subtree's action.
 
 Capacity bound (the MoE "expert capacity" trick applied to subtrees):
 block-aligning every SID segment of B flows needs at most
@@ -26,7 +35,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.dt_traverse import dt_traverse_blocks
+from repro_torch.kernels.dt_traverse import (
+    dt_traverse_blocks, dt_traverse_flows_kernel,
+)
 
 
 def round_up(n: int, m: int) -> int:
@@ -113,11 +124,19 @@ def dispatch_dt_traverse(
     *,
     block_b: int,
 ) -> torch.Tensor:
-    """SID-grouped range match -> action (B,) int32.
+    """Range match of each flow against its own subtree -> action (B,)
+    int32.
 
-    Scatter flows to capacity-padded SID blocks, run the block-level
-    range match (the CUDA kernel for a CUDA tensor, its plain version
-    for a CPU tensor), gather actions back to flow order."""
+    On a CUDA tensor: one launch of kernel B's per-flow form on
+    ``(regs, sid)``, no grouping (``block_b`` is validated and decides
+    nothing of the result).  On a CPU tensor, as the JAX package: scatter
+    flows to capacity-padded SID blocks, run the block form's plain
+    version, gather actions back to flow order."""
+    if not 0 < block_b <= 1024:
+        raise ValueError(f"block_b must be in 1..1024, got {block_b}")
+    if regs.device.type == "cuda":
+        return dt_traverse_flows_kernel(regs, sid, thresholds, leaf_lo,
+                                        leaf_hi, leaf_action, leaf_valid)
     B, k = regs.shape
     S = int(thresholds.shape[0])
     d = sid_dispatch(sid, n_subtrees=S, block_b=block_b)

@@ -24,11 +24,20 @@ runs the hop kernel, kernel A runs in ``window_features`` (k = 41): one
 launch a call over every window, under one slot row all flows share.
 
 The fold kernels (``csrc/feature_update.cu``) replace
-``feature_update_pallas`` and ``feature_update_finalize_pallas``; their
-plain versions are ``ref.feature_update_ref`` and
-``ref.feature_update_finalize_ref``.  One packet per row, one thread
-per (row, slot): an elementwise pass of ~170 bytes a row at k = 4, so at
-serving widths they are bound by launch latency, not by memory.
+``feature_update_pallas`` and ``feature_update_finalize_pallas``.  One
+template, one packet per row, one thread per (row, slot), in two forms:
+the row forms (:func:`feature_update_kernel`,
+:func:`feature_update_finalize_kernel`: the Pallas kernels' dense (n, k)
+arguments; plain versions ``ref.feature_update_ref`` and
+``ref.feature_update_finalize_ref``) and the table forms
+(:func:`feature_update_table_kernel`,
+:func:`feature_update_finalize_table_kernel`: the resident (N, k) state
+folded in place at ``slots``, the slot rows pre-gathered or read from
+the SID-keyed tables at each row's SID; plain versions
+:func:`feature_update_table_ref`,
+:func:`feature_update_finalize_table_ref`).  An elementwise pass of ~96
+bytes a row at k = 4, so at serving widths they are bound by launch
+latency, not by memory.
 
 The ``*_kernel`` functions only launch: they take CUDA tensors and raise
 on anything else.  ``kernels.ops`` routes a CPU tensor to the plain
@@ -166,6 +175,9 @@ def _update_lib():
         lib.feature_update_finalize_launch.argtypes = [
             p, p, p, p, p, p, p, p, p, p, n, i, p]
         lib.feature_update_finalize_launch.restype = ctypes.c_int
+        lib.feature_update_table_launch.argtypes = [
+            p, p, n, p, p, p, p, p, p, p, i, p, i, n, i, p]
+        lib.feature_update_table_launch.restype = ctypes.c_int
         lib.feature_update_error_string.argtypes = [ctypes.c_int]
         lib.feature_update_error_string.restype = ctypes.c_char_p
     return lib
@@ -261,6 +273,137 @@ def feature_update_finalize_kernel(
     return acc2, seen2, regs
 
 
+def _sid_rows(rows, sid):
+    """The slot rows of each entry: ``rows`` as they are when ``sid`` is
+    None, else the SID-keyed tables' rows at ``sid`` (``-1``: row
+    ``S - 1``)."""
+    if sid is None:
+        return rows
+    r = sid.to(torch.int64)
+    return tuple(t[r] for t in rows)
+
+
+def feature_update_table_ref(acc_tab, seen_tab, slots, sid, pkt, slot_op,
+                             slot_field, slot_pred):
+    """Plain version of the fold kernel's table form, as JAX's
+    ``feature_update_at`` computes it: every addressed state row
+    gathered, folded (``ref.feature_update_ref``), then scattered back
+    into ``acc_tab`` / ``seen_tab`` IN PLACE, which it returns.  ``sid``
+    None: the slot rows are (n, k), one a row; else they are the (S, k)
+    SID-keyed tables, read at each row's SID (``-1``: row ``S - 1``)."""
+    s = slots.to(torch.int64)
+    rows = _sid_rows((slot_op, slot_field, slot_pred), sid)
+    a2, s2 = _ref.feature_update_ref(pkt, *rows, acc_tab[s], seen_tab[s])
+    acc_tab[s] = a2
+    seen_tab[s] = s2
+    return acc_tab, seen_tab
+
+
+def feature_update_finalize_table_ref(acc_tab, seen_tab, slots, sid, pkt,
+                                      slot_op, slot_field, slot_pred,
+                                      slot_init):
+    """Plain version of the fold-and-finalize kernel's table form:
+    :func:`feature_update_table_ref`, then the registers (n, k) of each
+    addressed row's new state (``ref.feature_finalize_ref``).  Returns
+    ``(acc_tab, seen_tab, regs)``."""
+    s = slots.to(torch.int64)
+    rows = _sid_rows((slot_op, slot_field, slot_pred, slot_init), sid)
+    a2, s2, regs = _ref.feature_update_finalize_ref(
+        pkt, *rows, acc_tab[s], seen_tab[s])
+    acc_tab[s] = a2
+    seen_tab[s] = s2
+    return acc_tab, seen_tab, regs
+
+
+def _check_table(name, acc_tab, seen_tab, slots, sid, pkt, rows) -> int:
+    """Validate one table-form launch's tensors; returns k."""
+    dev = pkt.device
+    if dev.type != "cuda":
+        raise ValueError(
+            f"{name} needs CUDA tensors, got {dev}; its plain version for "
+            f"CPU tensors is {name.replace('_kernel', '_ref')}")
+    if pkt.dtype != torch.float32 or pkt.dim() != 2 \
+            or pkt.shape[1] != PKT_NFIELDS or not pkt.is_contiguous():
+        raise ValueError(f"{name}: pkt needs a contiguous f32 "
+                         f"(n, {PKT_NFIELDS}) tensor, got {pkt.dtype} "
+                         f"{tuple(pkt.shape)}")
+    n = pkt.shape[0]
+    k = acc_tab.shape[1] if acc_tab.dim() == 2 else -1
+    N = acc_tab.shape[0]
+    lead = n if sid is None else rows[0][1].shape[0]
+    expect = [("acc_tab", acc_tab, torch.float32, (N, k)),
+              ("seen_tab", seen_tab, torch.int32, (N, k)),
+              ("slots", slots, torch.int32, (n,))]
+    if sid is not None:
+        expect.append(("sid", sid, torch.int32, (n,)))
+    expect += [(row_name, x, dt, (lead, k)) for row_name, x, dt in rows]
+    for arg, x, dt, shape in expect:
+        if x.device != dev or x.dtype != dt or tuple(x.shape) != shape \
+                or not x.is_contiguous():
+            raise ValueError(
+                f"{name}: {arg} needs a contiguous {dt} {shape} tensor on "
+                f"{dev}, got {x.dtype} {tuple(x.shape)} on {x.device}")
+    if sid is not None and lead == 0 and n:
+        raise ValueError(f"{name}: the slot tables hold no subtree")
+    return k
+
+
+def _table_launch(acc_tab, seen_tab, slots, sid, pkt, rows, regs, k):
+    lib = _update_lib()
+    stream = torch.cuda.current_stream(pkt.device).cuda_stream
+    init = rows[3].data_ptr() if len(rows) == 4 else None
+    err = lib.feature_update_table_launch(
+        acc_tab.data_ptr(), seen_tab.data_ptr(), acc_tab.shape[0],
+        slots.data_ptr(), None if sid is None else sid.data_ptr(),
+        pkt.data_ptr(), *(x.data_ptr() for x in rows[:3]), init,
+        rows[0].shape[0], None if regs is None else regs.data_ptr(),
+        int(regs is not None), pkt.shape[0], k, stream)
+    _raise_on(lib, err, "feature_update_table")
+
+
+def feature_update_table_kernel(acc_tab, seen_tab, slots, sid, pkt,
+                                slot_op, slot_field, slot_pred):
+    """Launch the fold kernel's table form on the current stream
+    (arguments as :func:`feature_update_table_ref`; ``slots`` and ``sid``
+    int32): ``acc_tab`` / ``seen_tab`` folded IN PLACE at ``slots``, and
+    returned.  ``slots`` addresses each row at most once, but for
+    duplicates that carry an invalid packet (the flow table's dummy-row
+    padding), whose fold is idempotent (``csrc/feature_update.cu``)."""
+    global update_launches
+    k = _check_table("feature_update_table_kernel", acc_tab, seen_tab,
+                     slots, sid, pkt, (
+                         ("slot_op", slot_op, torch.int32),
+                         ("slot_field", slot_field, torch.int32),
+                         ("slot_pred", slot_pred, torch.int32)))
+    if pkt.shape[0] and k:
+        _table_launch(acc_tab, seen_tab, slots, sid, pkt,
+                      (slot_op, slot_field, slot_pred), None, k)
+        update_launches += 1
+    return acc_tab, seen_tab
+
+
+def feature_update_finalize_table_kernel(acc_tab, seen_tab, slots, sid, pkt,
+                                         slot_op, slot_field, slot_pred,
+                                         slot_init):
+    """Launch the fold-and-finalize kernel's table form on the current
+    stream (arguments as :func:`feature_update_finalize_table_ref`):
+    returns ``(acc_tab, seen_tab, regs)``, the tables folded in place."""
+    global update_finalize_launches
+    k = _check_table("feature_update_finalize_table_kernel", acc_tab,
+                     seen_tab, slots, sid, pkt, (
+                         ("slot_op", slot_op, torch.int32),
+                         ("slot_field", slot_field, torch.int32),
+                         ("slot_pred", slot_pred, torch.int32),
+                         ("slot_init", slot_init, torch.float32)))
+    regs = torch.empty((pkt.shape[0], max(k, 0)), dtype=torch.float32,
+                       device=pkt.device)
+    if regs.numel():
+        _table_launch(acc_tab, seen_tab, slots, sid, pkt,
+                      (slot_op, slot_field, slot_pred, slot_init), regs, k)
+        update_finalize_launches += 1
+    return acc_tab, seen_tab, regs
+
+
 def feature_update_at(
     acc_tab: torch.Tensor,     # (N, k) f32 resident state table
     seen_tab: torch.Tensor,    # (N, k) int32
@@ -270,18 +413,23 @@ def feature_update_at(
     slot_field: torch.Tensor,
     slot_pred: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Fold one packet into each addressed table row, IN PLACE.
+    """Fold one packet into each addressed table row, IN PLACE; returns
+    ``acc_tab`` / ``seen_tab``.
 
-    Gathers the rows, folds (the fold kernel for a CUDA table, the plain
-    version for a CPU one) and scatters the new state back into
-    ``acc_tab`` / ``seen_tab``, which it returns.  ``slots`` must
-    address each real row at most once; duplicate padding indices are
-    safe, since padded rows compute identical values."""
-    s = slots.to(torch.int64)
-    fold = (feature_update_kernel if acc_tab.device.type == "cuda"
-            else _ref.feature_update_ref)
-    a2, s2 = fold(pkt, slot_op, slot_field, slot_pred, acc_tab[s],
-                  seen_tab[s])
-    acc_tab[s] = a2
-    seen_tab[s] = s2
-    return acc_tab, seen_tab
+    A CUDA table takes one launch of the fold kernel's table form, the
+    pre-gathered slot rows read as an n-row table indexed by row
+    (``sid`` None; one kernel node for int32 ``slots``).  A CPU table
+    gathers the rows, folds them with the plain version and scatters
+    them back, as JAX does.  ``slots`` must address each real row at
+    most once; duplicate padding indices are safe when they carry an
+    invalid packet, as the flow table's do: the JAX route computes
+    identical values for them, and the kernel's in-place fold of such a
+    packet is idempotent.  (The legacy tick engine's ``_fold_rank`` calls
+    the SID-keyed table form, :func:`feature_update_table_kernel`, and
+    skips the slot-row gathers too.)"""
+    if acc_tab.device.type == "cuda":
+        return feature_update_table_kernel(
+            acc_tab, seen_tab, slots.to(torch.int32), None, pkt, slot_op,
+            slot_field, slot_pred)
+    return feature_update_table_ref(acc_tab, seen_tab, slots, None, pkt,
+                                    slot_op, slot_field, slot_pred)

@@ -9,10 +9,10 @@ The engine's walk on the card runs one hop kernel per partition
 (``kernels.engine_hop``), which reads the SID-keyed tables itself.  The
 per-op routes on the engine's :class:`DeviceTables`,
 :func:`feature_window_dev` (kernel A on SID-gathered slot rows) and
-:func:`dt_traverse_dev` (kernel B behind the device-side SID dispatch,
-``kernels.dispatch``), carry the looped backend (``Engine.run_looped``)
-one op at a time, and make up the two-kernel stage :func:`cuda_step`,
-which stays callable beside the hop kernel.  :func:`feature_window` and
+:func:`dt_traverse_dev` (kernel B's per-flow form, one launch), carry
+the looped backend (``Engine.run_looped``) one op at a time, and make up
+the two-kernel stage :func:`cuda_step`, which stays callable beside the
+hop kernel.  :func:`feature_window` and
 :func:`dt_traverse` take host ``PackedTables`` / ``RangeExecTables`` and
 upload them per call.
 """
@@ -28,7 +28,7 @@ from repro_torch.core.tables import PackedTables
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.chunk_scan import DEFAULT_CHUNK, chunk_scan_kernel
 from repro_torch.kernels.dispatch import dispatch_dt_traverse
-from repro_torch.kernels.dt_traverse import BLOCK_B
+from repro_torch.kernels.dt_traverse import BLOCK_B, dt_traverse_flows_ref
 from repro_torch.kernels.feature_window import (
     feature_update_finalize_kernel, feature_update_kernel,
     feature_window_kernel,
@@ -96,8 +96,9 @@ def cuda_step(block_b: int = BLOCK_B) -> StepFn:
     """The two-kernel partition stage (counterpart of ``pallas_step``).
 
     The feature kernel fills the registers from SID-gathered slot rows;
-    the range-match kernel runs behind the device-side SID dispatch with
-    ``block_b``-row flow blocks.  Both kernels take CUDA tensors only.
+    the range-match kernel matches each flow against its own subtree
+    (one launch; ``block_b`` is validated and decides nothing of the
+    result).  Both kernels take CUDA tensors only.
     ``Engine.run`` runs the hop kernel instead; this stage stays so the
     two walks can be timed side by side (``chip_smoke.py``).  Cached so
     each ``block_b`` maps to one function object.
@@ -152,16 +153,15 @@ def dt_traverse_dev(regs: torch.Tensor, sid: torch.Tensor,
                     dev: DeviceTables, *, block_b: int = BLOCK_B
                     ) -> torch.Tensor:
     """Range-mark match against the engine's device tables -> action
-    (B,) int32: kernel B behind the SID dispatch for a CUDA tensor, the
-    dense plain version for a CPU tensor."""
-    s = _table_rows(sid, dev.thresholds.shape[0])
+    (B,) int32: one launch of kernel B's per-flow form for a CUDA tensor
+    (through ``dispatch_dt_traverse``; the kernel wraps a SID of ``-1``
+    to row ``S - 1`` itself), its plain version for a CPU tensor."""
+    tables = (dev.thresholds, dev.leaf_lo, dev.leaf_hi, dev.leaf_action,
+              dev.leaf_valid)
     if regs.device.type == "cuda":
-        return dispatch_dt_traverse(
-            regs, s.to(torch.int32), dev.thresholds, dev.leaf_lo,
-            dev.leaf_hi, dev.leaf_action, dev.leaf_valid, block_b=block_b)
-    return _ref.dt_traverse_ref(regs, dev.thresholds[s], dev.leaf_lo[s],
-                                dev.leaf_hi[s], dev.leaf_action[s],
-                                dev.leaf_valid[s] > 0)
+        return dispatch_dt_traverse(regs, sid.to(torch.int32), *tables,
+                                    block_b=block_b)
+    return dt_traverse_flows_ref(regs, sid, *tables)
 
 
 def feature_update(pkt, slot_op, slot_field, slot_pred, acc, seen
@@ -210,8 +210,8 @@ def dt_traverse(
     block_b: int = BLOCK_B,
 ) -> torch.Tensor:
     """Range-mark match each flow against its active subtree -> action
-    (B,): kernel B behind the SID dispatch for a CUDA tensor, the dense
-    plain version for a CPU tensor."""
+    (B,): kernel B's per-flow form for a CUDA tensor, its plain version
+    for a CPU tensor."""
     d = regs.device
     thr, lo, hi, act = (torch.as_tensor(t).to(d) for t in (
         ret.thresholds, ret.leaf_lo, ret.leaf_hi, ret.leaf_action))
@@ -219,9 +219,7 @@ def dt_traverse(
     if d.type == "cuda":
         return dispatch_dt_traverse(regs, sid, thr, lo, hi, act, val,
                                     block_b=block_b)
-    s = sid.to(torch.int64)
-    return _ref.dt_traverse_ref(regs, thr[s], lo[s], hi[s], act[s],
-                                val[s] > 0)
+    return dt_traverse_flows_ref(regs, sid, thr, lo, hi, act, val)
 
 
 # ---------------------------------------------------------------------------

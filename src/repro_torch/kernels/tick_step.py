@@ -48,6 +48,7 @@ from repro_torch.core.features import N_FEATURES, PKT_IAT, PKT_NFIELDS
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.dispatch import dispatch_dt_traverse
+from repro_torch.kernels.dt_traverse import dt_traverse_flows_ref
 
 _I32 = torch.int32
 
@@ -128,15 +129,14 @@ def admit_rows(state: TickState, slots: torch.Tensor,
 
 def _dense_traverse(regs, sid_rows, dev):
     """The range match's plain version over each row's own subtree."""
-    s = sid_rows.to(torch.int64)
-    return _ref.dt_traverse_ref(
-        regs, dev.thresholds[s], dev.leaf_lo[s], dev.leaf_hi[s],
-        dev.leaf_action[s], dev.leaf_valid[s] > 0)
+    return dt_traverse_flows_ref(regs, sid_rows, dev.thresholds,
+                                 dev.leaf_lo, dev.leaf_hi, dev.leaf_action,
+                                 dev.leaf_valid)
 
 
 def _traverse(regs, sid_rows, dev, *, cuda: bool, block_b: int):
-    """Subtree traversal for one hop round of the legacy tick engine: the
-    range-match kernel behind the SID dispatch (``cuda``), or the dense
+    """Subtree traversal for one hop round of the legacy tick engine: one
+    launch of the range-match kernel's per-flow form (``cuda``), or its
     plain version."""
     if cuda:
         return dispatch_dt_traverse(

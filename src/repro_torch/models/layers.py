@@ -612,8 +612,14 @@ def _attend_sharded(q, k, v, kw: dict) -> torch.Tensor:
     JAX's constraint (heads on "model"), then the attention run on every
     (batch, heads) block on its own (:func:`per_shard`), q, k and v
     redistributed there where they differ (a cache split on its
-    positions)."""
+    positions).  Before the repeat, k's and v's head_dim is gathered
+    whole where a mesh axis splits it (a cache the rules shard on
+    "model"), as XLA does: the constraint is then a local slice of a
+    replicated dim, where after the repeat it would be an all-to-all of
+    the repeated cache."""
     Hq, Hkv = q.shape[2], k.shape[2]
+    if Hq > Hkv:
+        k, v = gathered(k, 3), gathered(v, 3)
     k, v = _kv_heads(k, v, Hq // Hkv)
     if Hq > Hkv:
         k = shard(k, BATCH_AXES, None, "model", None)

@@ -19,7 +19,7 @@ module is the live analogue:
   boundary, drain of empty windows); on the CPU the plain rank loop.
   The verdicts come back in one fetch;
 * the **legacy tick engine** (``tick_engine="legacy"``) folds one rank
-  per call (the fold kernel through ``feature_update_at``) and hops one
+  per call (the fold kernel in place on the resident state) and hops one
   drain round per call, with a host fetch after each hop.  Both engines
   give identical verdicts;
 * **timeout eviction** emits mid-stream verdicts for idle flows with the
@@ -40,13 +40,15 @@ one per legacy fold or hop, one per spill run.
 Execution knobs come from :class:`repro_torch.core.inference.EngineOptions`:
 ``impl=None`` is ``cuda`` on a CUDA engine and ``fused`` on a CPU one;
 ``fused`` runs the plain PyTorch versions, ``cuda`` the kernels (the
-tick kernel in the fused engine; the fold kernel and the range-match
-kernel behind the SID dispatch in the legacy engine; the hop kernel in
+tick kernel in the fused engine; the fold kernel, in place on the
+resident state, and the range-match kernel in the legacy engine, one
+launch each a rank or hop round; the hop kernel in
 the spill walk, ``Engine.run``); ``impl="auto"`` / ``"tuned"`` (or
 ``options.plan``) resolve a walk-backend plan for the table's shape
 through ``repro_torch.tuning`` (no probe windows exist, so ``tuned`` is
-the cost model); ``block_b`` is the legacy engine's SID dispatch block
-size.  ``tick_engine="auto"``, the default, picks the tick engine by the
+the cost model); ``block_b``, the JAX server's SID dispatch block
+size, is validated and decides nothing (the range-match kernel groups no
+flows).  ``tick_engine="auto"``, the default, picks the tick engine by the
 tick-shape estimate (``tuning.choose_tick_engine``).  The tick kernel
 takes up to ``kernels.tick_step.K_MAX`` (= ``N_FEATURES``, 41) slots a
 subtree, every k the JAX server serves; a server on the card whose tick
@@ -68,7 +70,9 @@ from repro_torch.flows.windows import window_bounds
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels import tick_step as _tick
 from repro_torch.kernels.dt_traverse import BLOCK_B
-from repro_torch.kernels.feature_window import feature_update_at
+from repro_torch.kernels.feature_window import (
+    feature_update_table_kernel, feature_update_table_ref,
+)
 from repro_torch.obs import MetricRegistry, exp_edges, span
 
 #: Tick engines ``FlowTableServer`` accepts.
@@ -360,17 +364,13 @@ def _reset_rows(acc, seen, slots, sid_rows, dev) -> None:
 
 def _fold_rank(acc, seen, pkt, sid_rows, slots, dev, *, cuda: bool) -> None:
     """Fold one rank (<= 1 packet per slot) into the resident state, in
-    place: the fold kernel through ``feature_update_at`` (``cuda``) or
+    place: one launch of the fold kernel's SID-keyed table form
+    (``cuda``), which reads each row's slot rows at its SID itself, or
     the plain version.  Padding entries address the dummy row with an
     invalid packet; all compute identical values."""
-    sid = sid_rows.to(torch.int64)
-    op, fld, prd = dev.slot_op[sid], dev.slot_field[sid], dev.slot_pred[sid]
-    if cuda:
-        feature_update_at(acc, seen, slots, pkt, op, fld, prd)
-        return
-    s = slots.to(torch.int64)
-    acc[s], seen[s] = _ref.feature_update_ref(pkt, op, fld, prd, acc[s],
-                                              seen[s])
+    fold = feature_update_table_kernel if cuda else feature_update_table_ref
+    fold(acc, seen, slots, sid_rows, pkt, dev.slot_op, dev.slot_field,
+         dev.slot_pred)
 
 
 def _hop_rank(acc, seen, slots, sid_rows, p_rows, rec_rows, dev, *,
